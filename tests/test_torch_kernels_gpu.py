@@ -1,0 +1,118 @@
+"""The hand-written CUDA kernels (ipp_rl_tpu_torch/csrc/smallchol.cu) on the
+card, against their plain PyTorch versions, and the greedy slice on the
+card against the same slice on the CPU.
+
+These tests need an NVIDIA Hopper card and the CUDA toolkit; elsewhere
+they skip.  They import no JAX, so they run where JAX is not installed:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py -q
+
+The kernels perform the plain versions' operations in the same order with
+one rounding each (no FMA contraction), so they are held to bitwise
+equality."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from ipp_rl_tpu_torch.config import CONFIG_DIR, MissionConfig, load_config
+from ipp_rl_tpu_torch.env.world import IPPWorld
+from ipp_rl_tpu_torch.ops import kernels, smallchol
+from ipp_rl_tpu_torch.planners import GreedyPlanner
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card with CUDA")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def random_spd(n, M, dtype, seed):
+    gen = torch.Generator().manual_seed(seed)
+    A = torch.randn((n, M, M), generator=gen, dtype=torch.float64)
+    return (A @ A.mT + 0.5 * torch.eye(M, dtype=torch.float64)).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("M", list(range(1, 13)))
+def test_spd_inverse_kernel_is_bitwise_plain(cuda, M, dtype):
+    S = random_spd(257, M, dtype, seed=M).to(cuda)
+    got = kernels.spd_inverse(S)
+    torch.cuda.synchronize()
+    assert torch.equal(got, smallchol.spd_inverse(S))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("M", [1, 2, 4, 9, 12])
+def test_spd_trace_product_kernel_is_bitwise_plain(cuda, M, dtype):
+    S = random_spd(1000, M, dtype, seed=M).to(cuda)
+    G = random_spd(1000, M, dtype, seed=100 + M).to(cuda)
+    got = kernels.spd_trace_product(S, G)
+    torch.cuda.synchronize()
+    assert got.shape == (1000,)
+    assert torch.equal(got, smallchol.spd_trace_product(S, G))
+
+
+def test_batch_dims_ragged_tail_and_clamp(cuda):
+    S = random_spd(3 * 129, 9, torch.float32, seed=1).reshape(3, 129, 9, 9).to(cuda)
+    S[1, 5, -1, -1] -= 1e3  # indefinite: the last pivot is clamped
+    got = kernels.spd_inverse(S)
+    assert got.shape == S.shape and bool(torch.isfinite(got).all())
+    assert torch.equal(got, smallchol.spd_inverse(S))
+    assert got[1, 5, -1, -1].item() == pytest.approx(1e30, rel=1e-5)
+
+
+def test_launch_counts_and_empty_batch(cuda):
+    S = random_spd(4, 9, torch.float32, seed=2).to(cuda)
+    n_inv, n_tr = kernels.spd_inverse.launches, kernels.spd_trace_product.launches
+    kernels.spd_inverse(S)
+    kernels.spd_trace_product(S, S)
+    assert kernels.spd_inverse.launches == n_inv + 1
+    assert kernels.spd_trace_product.launches == n_tr + 1
+    empty = kernels.spd_inverse(S[:0])
+    assert empty.shape == (0, 9, 9) and kernels.spd_inverse.launches == n_inv + 1
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    S = random_spd(4, 9, torch.float32, seed=3).to(cuda)
+    with pytest.raises(ValueError):
+        kernels.spd_inverse(S.mT)  # not contiguous
+    with pytest.raises(ValueError):
+        kernels.spd_inverse(random_spd(2, 13, torch.float32, seed=4).to(cuda))
+    with pytest.raises(TypeError):
+        kernels.spd_inverse(S.half())
+    with pytest.raises(ValueError):
+        kernels.spd_trace_product(S, S.double())
+    with pytest.raises(ValueError):
+        kernels.spd_trace_product(S, S.cpu())
+
+
+def test_greedy_slice_on_card_matches_cpu(cuda):
+    """float64, canonical config: the slice on the card (through the
+    kernels) chooses the CPU run's actions and matches its curves."""
+    cfg = load_config(str(CONFIG_DIR / "example.yaml"))
+    B, T = 8, 4
+    cpu_world = IPPWorld(cfg, dtype=torch.float64, device="cpu")
+    state0 = cpu_world.init_state(B, torch.Generator().manual_seed(5))
+    noise = torch.randn((T, B, cpu_world.H.shape[1]), dtype=torch.float64,
+                        generator=torch.Generator().manual_seed(6))
+    want = GreedyPlanner(cpu_world, MissionConfig(type="greedy")).run(
+        B, T, init_state=state0, noise=noise
+    )
+    card_world = IPPWorld(cfg, dtype=torch.float64)
+    card_state0 = state0.replace(
+        **{f.name: getattr(state0, f.name).to(cuda) for f in dataclasses.fields(state0)}
+    )
+    got = GreedyPlanner(card_world, MissionConfig(type="greedy")).run(
+        B, T, init_state=card_state0, noise=noise.to(cuda)
+    )
+    np.testing.assert_array_equal(got.waypoints, want.waypoints)
+    for k, v in want.metrics.items():
+        np.testing.assert_allclose(got.metrics[k], v, rtol=1e-9, atol=1e-12)

@@ -1,0 +1,79 @@
+"""Boundaries of the PyTorch/CUDA port: it imports neither JAX nor the JAX
+package, its entry points run on the card unless told otherwise, and
+``chip_smoke.py`` fails (printing no result) without a card or without the
+rest of the repository."""
+
+import pathlib
+import re
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PACKAGE = ROOT / "ipp_rl_tpu_torch"
+FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|chex|ipp_rl_tpu)(\.|\s|$)", re.M)
+
+
+def _port_sources():
+    return sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_port_sources_import_no_jax():
+    offenders = [str(p) for p in _port_sources() if FORBIDDEN.search(p.read_text())]
+    assert offenders == []
+
+
+def test_port_imports_with_jax_blocked():
+    """Every module of the port imports in a process where importing jax,
+    flax or ipp_rl_tpu raises."""
+    modules = [
+        ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+        for p in sorted(PACKAGE.rglob("*.py"))
+    ]
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'flax', 'ipp_rl_tpu'): sys.modules[m] = None\n"
+        "import importlib\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        "assert not any(k == 'jax' or k.startswith(('jax.', 'ipp_rl_tpu.')) "
+        "for k in sys.modules if sys.modules[k] is not None)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_entry_points_default_to_cuda(small_cfg):
+    from ipp_rl_tpu_torch import resolve_device
+    from ipp_rl_tpu_torch.convert import belief_state_from_arrays
+    from ipp_rl_tpu_torch.env.world import IPPWorld
+
+    from test_torch_world import port_cfg
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device works here")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        IPPWorld(port_cfg(small_cfg))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        belief_state_from_arrays({})
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout and proc.stdout.strip() == ""
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout

@@ -1,0 +1,103 @@
+"""The port's plain small-SPD functions (ipp_rl_tpu_torch/ops/smallchol.py)
+against the JAX package: the Pallas kernel in interpret mode, its XLA twin
+and the unrolled trace product, on the same numpy-seeded inputs.
+
+Tolerances: float64 rtol 1e-10 (the same unrolled recurrence; only the
+rounding of a few hundred operations differs), float32 rtol 1e-4."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from ipp_rl_tpu.ops import smallchol as jax_smallchol
+from ipp_rl_tpu.ops.pallas_kernels import spd_inverse_pallas
+from ipp_rl_tpu_torch.ops import kernels, smallchol
+
+TOL = {np.float64: dict(rtol=1e-10, atol=1e-12), np.float32: dict(rtol=1e-4, atol=1e-5)}
+
+
+def random_spd(rng, batch, M):
+    A = rng.normal(size=(batch, M, M))
+    return A @ np.swapaxes(A, -1, -2) + 0.5 * np.eye(M)
+
+
+def indefinite(rng, batch, M):
+    """SPD except the last pivot, which goes negative and is clamped."""
+    S = random_spd(rng, batch, M)
+    S[:, -1, -1] -= 2.0 * np.trace(S, axis1=-2, axis2=-1)
+    return S
+
+
+@pytest.mark.parametrize(
+    "batch,M,dtype", [(37, 9, np.float64), (37, 9, np.float32), (5, 4, np.float64)]
+)
+def test_spd_inverse_matches_pallas_and_xla(batch, M, dtype):
+    rng = np.random.default_rng(batch * 100 + M)
+    S = random_spd(rng, batch, M).astype(dtype)
+    got = smallchol.spd_inverse(torch.from_numpy(S)).numpy()
+    # one tile: interpret mode costs seconds per grid step
+    pallas = np.asarray(spd_inverse_pallas(jnp.asarray(S), tile=64, interpret=True))
+    xla = np.asarray(jax_smallchol.spd_inverse(jnp.asarray(S)))
+    assert got.dtype == dtype
+    np.testing.assert_allclose(got, pallas, **TOL[dtype])
+    np.testing.assert_allclose(got, xla, **TOL[dtype])
+    np.testing.assert_allclose(got, np.swapaxes(got, -1, -2), rtol=0, atol=0)
+
+
+def test_spd_inverse_clamps_indefinite_pivot():
+    """An indefinite S hits the 1e-30 pivot floor: finite, huge entries,
+    identical to the Pallas kernel's, not NaN."""
+    rng = np.random.default_rng(3)
+    S = indefinite(rng, 37, 9)
+    got = smallchol.spd_inverse(torch.from_numpy(S)).numpy()
+    pallas = np.asarray(spd_inverse_pallas(jnp.asarray(S), tile=64, interpret=True))
+    assert np.all(np.isfinite(got))
+    assert np.abs(got[:, -1, -1]).min() == pytest.approx(1e30, rel=1e-6)
+    np.testing.assert_allclose(got, pallas, rtol=1e-10)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("batch,M", [(41, 9), (6, 3)])
+def test_spd_trace_product_matches_jax(dtype, batch, M):
+    rng = np.random.default_rng(batch + M)
+    S = random_spd(rng, batch, M).astype(dtype)
+    G = random_spd(rng, batch, M).astype(dtype)
+    got = smallchol.spd_trace_product(torch.from_numpy(S), torch.from_numpy(G)).numpy()
+    Sj, Gj = jnp.asarray(S), jnp.asarray(G)
+    want = np.asarray(
+        jax_smallchol.spd_trace_product(
+            lambda i, j: Sj[..., i, j], lambda i, j: Gj[..., i, j], M
+        )
+    )
+    assert got.shape == (batch,)
+    np.testing.assert_allclose(got, want, **TOL[dtype])
+    exact = np.einsum("bij,bji->b", np.linalg.inv(S.astype(np.float64)), G)
+    np.testing.assert_allclose(got, exact, rtol=1e-8 if dtype == np.float64 else 1e-3)
+
+
+def test_spd_cholesky_dense_matches_jax():
+    rng = np.random.default_rng(11)
+    S = random_spd(rng, 4, 9)
+    got = smallchol.spd_cholesky_dense(torch.from_numpy(S)).numpy()
+    want = np.asarray(jax_smallchol.spd_cholesky_dense(jnp.asarray(S)))
+    np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(got, np.linalg.cholesky(S), rtol=1e-10, atol=1e-12)
+
+
+def test_wrappers_take_plain_path_on_cpu():
+    """On CPU tensors the kernel wrappers are the plain versions and never
+    count a launch."""
+    rng = np.random.default_rng(5)
+    S = torch.from_numpy(random_spd(rng, 3, 9))
+    G = torch.from_numpy(random_spd(rng, 3, 9))
+    before = (kernels.spd_inverse.launches, kernels.spd_trace_product.launches)
+    assert torch.equal(kernels.spd_inverse(S), smallchol.spd_inverse(S))
+    assert torch.equal(kernels.spd_trace_product(S, G), smallchol.spd_trace_product(S, G))
+    assert (kernels.spd_inverse.launches, kernels.spd_trace_product.launches) == before
+
+
+def test_wrappers_reject_non_cuda_non_cpu_tensors():
+    S = torch.eye(9, device="meta")[None]
+    with pytest.raises(ValueError):
+        kernels.spd_inverse(S)
