@@ -13,5 +13,5 @@ from ipp_rl_tpu_torch.config.schema import (  # noqa: F401
 
 import pathlib
 
-#: the YAML configs live with the JAX package and are read in place
-CONFIG_DIR = pathlib.Path(__file__).resolve().parents[2] / "ipp_rl_tpu" / "config"
+#: the port's YAML configs (byte-for-byte copies of the JAX package's)
+CONFIG_DIR = pathlib.Path(__file__).resolve().parent

@@ -5,9 +5,13 @@
 // at 1e-30 before the square root) followed by forward substitution for
 // Li = L^-1.  Then
 //
-//   spd_inverse        writes S^-1 = Li^T Li                (n, M, M) -> (n, M, M)
+//   spd_inverse        writes S^-1 = Li^T Li              (n, M, M) row-major -> (n, M, M)
 //   spd_trace_product  writes tr(S^-1 G) = sum_{i>=j} (2 - d_ij) S^-1[i,j] G[i,j]
-//                      for symmetric G, never storing S^-1   (n, M, M) x 2 -> (n)
+//                      for symmetric G, never storing S^-1, from packed lower
+//                      triangles, entries-major           (outer, T, inner) x 2 -> (outer, inner)
+//
+// T = M(M+1)/2, and entry (i, j), i >= j, of block (o, c) lies at
+// (o*T + i(i+1)/2 + j)*inner + c.
 //
 // What each replaces:
 //   spd_inverse       - the TPU kernel `spd_inverse_pallas` / `_spd_inverse_kernel`
@@ -17,27 +21,40 @@
 //   spd_trace_product - the unrolled XLA program `spd_trace_product`
 //                       (ipp_rl_tpu/ops/smallchol.py:51), the per-action output of
 //                       the all-action sweep (ops/kalman.kf_sweep_gains_batched):
-//                       2 x 100 x B blocks per replan step on the canonical config.
+//                       2 x 100 x B blocks per replan step on the canonical config,
+//                       in the layouts (B, T, 100) (gather group) and (100, T, B)
+//                       (dense group).
 //
 // Bound on an H100 (3.35 TB/s, 67 TFLOP/s f32 outside the tensor cores):
 //   spd_inverse at B = 4096, M = 9, f32 moves 2 x 4096 x 81 x 4 B = 2.65 MB
-//   (~0.8 us) and does ~3 MFLOP: bytes-bound, and in practice launch-bound.
-//   spd_trace_product at 819,200 blocks moves ~531 MB (~160 us) for ~0.7
-//   GFLOP (~10 us): bytes-bound.
+//   (0.79 us) and does ~3 MFLOP: bytes-bound, and below the cost of a launch.
+//   spd_trace_product at 819,200 blocks reads two packed triangles and
+//   writes one value per block, (2 x 45 + 1) x 4 B = 364 B, so 298 MB
+//   (89 us) for ~0.7 GFLOP (~10 us): bytes-bound.
 //
-// Design: one thread per matrix; L and Li live in registers (45 + 45
+// Design.  One thread per matrix; L and Li live in registers (45 + 45
 // values at M = 9; M is a template parameter so every loop unrolls and
-// every index is a compile-time constant).  The ragged tail is masked by
-// the thread index, with no padding.  Each thread reads its matrix as
-// row-major (M, M) storage, so a warp's loads are strided by M*M*4 B
-// (324 B at M = 9) and rely on L1 to reuse the sectors.  Staging the
-// blocks through shared memory, or an entries-major (M*M, n) layout as the
-// TPU kernel used, would coalesce them; that is left for a later change.
+// every index is a compile-time constant).
+//   spd_trace_product: one thread per block (o, c), threads consecutive in
+//   c, so each of a warp's 2 x T loads is one contiguous 128 B line (f32)
+//   and every byte fetched is used: the entries-major idea of the TPU
+//   kernel (pallas_kernels.py:9-13), restricted to the lower triangle that
+//   the function reads.  The sweep builds its blocks in this layout, so no
+//   caller transposes or copies full blocks.
+//   spd_inverse: a CTA of one warp owns a tile of kInverseTile = 32
+//   consecutive matrices, which is one contiguous range of memory.  The
+//   warp copies it into shared memory with 16-byte vector loads, each
+//   thread inverts its matrix there and writes S^-1 back in place, and the
+//   warp stores the tile with 16-byte vector stores.  A matrix's stride of
+//   M*M words is odd at M = 9, so the per-thread shared reads and writes
+//   are free of bank conflicts.  B = 4096 gives 128 CTAs for the 132 SMs.
+// The ragged tail is masked by index, with no padding.
 //
 // Numerics: the operations and their order are those of the plain PyTorch
 // versions (ops/smallchol.py), and the library is built with -fmad=false
 // (no multiply-add contraction) and IEEE division and square root, so on
-// the same inputs kernel and plain version agree to the last bit.
+// the same inputs kernel and plain version agree to the last bit.  Only
+// the addressing differs between the layouts.
 //
 // Interface: plain C, loaded with ctypes by ops/kernels.py; pointers and
 // the stream arrive as void*.  Each launcher returns 0, a cudaError_t from
@@ -49,8 +66,9 @@
 
 namespace {
 
-constexpr int kThreads = 128;
 constexpr int kMaxM = 12;
+constexpr int kInverseTile = 32;  // matrices, and threads, per CTA of spd_inverse
+constexpr int kTraceThreads = 128;
 
 template <typename T>
 __device__ __forceinline__ T clamp_pivot(T x) {
@@ -58,21 +76,39 @@ __device__ __forceinline__ T clamp_pivot(T x) {
   return x < floor_v ? floor_v : x;  // a NaN passes through, as in torch.clamp
 }
 
-// Li = L^-1 (lower triangle) for the SPD matrix at s (row-major M x M);
-// only the lower triangle of s is read.
+// entry (i, j) of a row-major M x M matrix (here in shared memory)
 template <int M, typename T>
-__device__ __forceinline__ void inverse_factor(const T* __restrict__ s, T (&Li)[M][M]) {
+struct RowMajor {
+  const T* p;
+  __device__ __forceinline__ T operator()(int i, int j) const { return p[i * M + j]; }
+};
+
+// entry (i, j), i >= j, of a packed lower triangle whose entries lie
+// `stride` elements apart in global memory
+template <typename T>
+struct Packed {
+  const T* p;
+  int64_t stride;
+  __device__ __forceinline__ T operator()(int i, int j) const {
+    return __ldg(p + (i * (i + 1) / 2 + j) * stride);
+  }
+};
+
+// Li = L^-1 (lower triangle) for the SPD matrix whose entry (i, j), i >= j,
+// is s(i, j); only the lower triangle is read.
+template <int M, typename T, typename Entry>
+__device__ __forceinline__ void inverse_factor(const Entry& s, T (&Li)[M][M]) {
   T L[M][M];
 #pragma unroll
   for (int j = 0; j < M; ++j) {
-    T acc = s[j * M + j];
+    T acc = s(j, j);
 #pragma unroll
     for (int k = 0; k < j; ++k) acc = acc - L[j][k] * L[j][k];
     L[j][j] = sqrt(clamp_pivot(acc));
     const T inv_d = T(1) / L[j][j];
 #pragma unroll
     for (int i = j + 1; i < M; ++i) {
-      T a = s[i * M + j];
+      T a = s(i, j);
 #pragma unroll
       for (int k = 0; k < j; ++k) a = a - L[i][k] * L[j][k];
       L[i][j] = a * inv_d;
@@ -100,59 +136,87 @@ __device__ __forceinline__ T inverse_entry(const T (&Li)[M][M], int i, int j) {
   return acc;
 }
 
-template <int M, typename T>
-__global__ void __launch_bounds__(kThreads)
-spd_inverse_kernel(const T* __restrict__ s, T* __restrict__ out, int64_t n) {
-  const int64_t b = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (b >= n) return;
-  T Li[M][M];
-  inverse_factor<M>(s + b * (M * M), Li);
-  T* o = out + b * (M * M);
-#pragma unroll
-  for (int i = 0; i < M; ++i) {
-#pragma unroll
-    for (int j = 0; j <= i; ++j) {
-      const T v = inverse_entry<M>(Li, i, j);
-      o[i * M + j] = v;
-      o[j * M + i] = v;
-    }
+// count elements from src to dst by the CTA's threads: 16-byte vectors
+// where both ends are 16-byte aligned and the length allows, else scalars
+template <typename T>
+__device__ __forceinline__ void copy_tile(T* __restrict__ dst, const T* __restrict__ src,
+                                          int count) {
+  const int bytes = count * static_cast<int>(sizeof(T));
+  const uintptr_t ends = reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src);
+  if ((ends & 15) == 0 && bytes % 16 == 0) {
+    const float4* s4 = reinterpret_cast<const float4*>(src);
+    float4* d4 = reinterpret_cast<float4*>(dst);
+    for (int k = threadIdx.x; k < bytes / 16; k += blockDim.x) d4[k] = s4[k];
+  } else {
+    for (int k = threadIdx.x; k < count; k += blockDim.x) dst[k] = src[k];
   }
 }
 
 template <int M, typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kInverseTile)
+spd_inverse_kernel(const T* __restrict__ s, T* __restrict__ out, int64_t n) {
+  __shared__ __align__(16) T tile[kInverseTile * M * M];
+  const int64_t b0 = static_cast<int64_t>(blockIdx.x) * kInverseTile;
+  const int mats = n - b0 < kInverseTile ? static_cast<int>(n - b0) : kInverseTile;
+  copy_tile(tile, s + b0 * (M * M), mats * M * M);
+  __syncthreads();
+  if (static_cast<int>(threadIdx.x) < mats) {
+    T* m = tile + threadIdx.x * (M * M);
+    T Li[M][M];
+    inverse_factor<M>(RowMajor<M, T>{m}, Li);
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+#pragma unroll
+      for (int j = 0; j <= i; ++j) {
+        const T v = inverse_entry<M>(Li, i, j);
+        m[i * M + j] = v;
+        m[j * M + i] = v;
+      }
+    }
+  }
+  __syncthreads();
+  copy_tile(out + b0 * (M * M), tile, mats * M * M);
+}
+
+template <int M, typename T>
+__global__ void __launch_bounds__(kTraceThreads)
 spd_trace_product_kernel(const T* __restrict__ s, const T* __restrict__ g,
-                         T* __restrict__ out, int64_t n) {
-  const int64_t b = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (b >= n) return;
+                         T* __restrict__ out, int64_t outer, int64_t inner) {
+  constexpr int kT = M * (M + 1) / 2;
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * kTraceThreads + threadIdx.x;
+  if (t >= outer * inner) return;
+  const int64_t o = t / inner;
+  const int64_t base = o * (kT - 1) * inner + t;  // (o*T)*inner + (t - o*inner)
   T Li[M][M];
-  inverse_factor<M>(s + b * (M * M), Li);
-  const T* gb = g + b * (M * M);
+  inverse_factor<M>(Packed<T>{s + base, inner}, Li);
+  const Packed<T> gb{g + base, inner};
   T total = T(0);
 #pragma unroll
   for (int i = 0; i < M; ++i) {
 #pragma unroll
     for (int j = 0; j <= i; ++j) {
-      T term = inverse_entry<M>(Li, i, j) * gb[i * M + j];
+      T term = inverse_entry<M>(Li, i, j) * gb(i, j);
       if (i != j) term = term + term;
       total = (i == 0) ? term : total + term;
     }
   }
-  out[b] = total;
+  out[t] = total;
 }
 
 template <int M, typename T>
 void launch_inverse(const void* s, void* out, int64_t n, cudaStream_t stream) {
-  const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-  spd_inverse_kernel<M, T><<<blocks, kThreads, 0, stream>>>(
+  const unsigned blocks = static_cast<unsigned>((n + kInverseTile - 1) / kInverseTile);
+  spd_inverse_kernel<M, T><<<blocks, kInverseTile, 0, stream>>>(
       static_cast<const T*>(s), static_cast<T*>(out), n);
 }
 
 template <int M, typename T>
-void launch_trace(const void* s, const void* g, void* out, int64_t n, cudaStream_t stream) {
-  const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-  spd_trace_product_kernel<M, T><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(s), static_cast<const T*>(g), static_cast<T*>(out), n);
+void launch_trace(const void* s, const void* g, void* out, int64_t outer, int64_t inner,
+                  cudaStream_t stream) {
+  const unsigned blocks =
+      static_cast<unsigned>((outer * inner + kTraceThreads - 1) / kTraceThreads);
+  spd_trace_product_kernel<M, T><<<blocks, kTraceThreads, 0, stream>>>(
+      static_cast<const T*>(s), static_cast<const T*>(g), static_cast<T*>(out), outer, inner);
 }
 
 // calls F::template run<M, T>() for the runtime M; false if M is unsupported
@@ -181,8 +245,10 @@ struct InverseLaunch {
 };
 
 struct TraceLaunch {
-  const void* s; const void* g; void* out; int64_t n; cudaStream_t stream;
-  template <int M, typename T> void run() const { launch_trace<M, T>(s, g, out, n, stream); }
+  const void* s; const void* g; void* out; int64_t outer; int64_t inner; cudaStream_t stream;
+  template <int M, typename T> void run() const {
+    launch_trace<M, T>(s, g, out, outer, inner, stream);
+  }
 };
 
 // dtype codes: 0 = float32, 1 = float64
@@ -208,10 +274,11 @@ int smallchol_spd_inverse(const void* s, void* out, long long n, int m, int dtyp
   return launch(m, dtype, InverseLaunch{s, out, n, static_cast<cudaStream_t>(stream)});
 }
 
-int smallchol_spd_trace_product(const void* s, const void* g, void* out, long long n,
-                                int m, int dtype, void* stream) {
-  if (n <= 0) return 0;
-  return launch(m, dtype, TraceLaunch{s, g, out, n, static_cast<cudaStream_t>(stream)});
+int smallchol_spd_trace_product(const void* s, const void* g, void* out, long long outer,
+                                long long inner, int m, int dtype, void* stream) {
+  if (outer <= 0 || inner <= 0) return 0;
+  return launch(m, dtype,
+                TraceLaunch{s, g, out, outer, inner, static_cast<cudaStream_t>(stream)});
 }
 
 const char* smallchol_error_string(int err) {

@@ -12,11 +12,12 @@ tr(S⁻¹·G) with G = H·Q·Hᵀ, Q = P·diag(m)·P.
 Every function broadcasts over leading batch axes (the mission axis is an
 explicit dimension; nothing is vmapped).  The (M, M) inverses go through
 ``ops/kernels.spd_inverse`` and the sweep's per-action trace products
-through ``ops/kernels.spd_trace_product``: hand-written CUDA on the card,
-the plain versions of ops/smallchol.py on the CPU.  The GEMMs, which the
-JAX package left to XLA, are ``torch.matmul``; float32 products must run
-in full float32 (``torch.backends.cuda.matmul.allow_tf32`` False, the
-default).
+through ``ops/kernels.spd_trace_product_packed``: hand-written CUDA on the
+card, the plain versions of ops/smallchol.py on the CPU.  The sweep builds
+its S and G blocks as packed lower triangles, entries-major, which is the
+layout that kernel reads.  The GEMMs, which the JAX package left to XLA,
+are ``torch.matmul``; float32 products must run in full float32
+(``torch.backends.cuda.matmul.allow_tf32`` False, the default).
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import numpy as np
 import torch
 
 from ipp_rl_tpu_torch.ops import kernels
-from ipp_rl_tpu_torch.ops.smallchol import spd_cholesky_dense
+from ipp_rl_tpu_torch.ops.smallchol import packed_index, packed_size, spd_cholesky_dense
 
 
 def _eye_like(S: torch.Tensor) -> torch.Tensor:
@@ -146,6 +147,14 @@ def kf_sweep_gains(
     return torch.sum(sq, dim=-1)
 
 
+def _packed_diag(values: np.ndarray) -> np.ndarray:
+    """(..., M) → (..., T): packed lower triangles of diag(values)."""
+    M = values.shape[-1]
+    out = np.zeros(values.shape[:-1] + (packed_size(M),), values.dtype)
+    out[..., [packed_index(i, i) for i in range(M)]] = values
+    return out
+
+
 def prepare_batched_sweep(plan, dtype=torch.float32, device="cpu"):
     """Device-constant bundle for :func:`kf_sweep_gains_batched` from a
     SweepPlan built with grid dims (ops/sensor_model.build_sweep_plan).
@@ -156,12 +165,21 @@ def prepare_batched_sweep(plan, dtype=torch.float32, device="cpu"):
     package's full (2r+1)² slot layout: an out-of-grid slot gets zero P/Q
     entries and 1.0 on the diagonal, an in-grid one the action's R
     (ipp_rl_tpu/ops/kalman.py:319-326).  rf > 1 groups stay DENSE with
-    group-local H rows."""
+    group-local H rows.
+
+    Blocks are packed lower triangles (ops/smallchol.packed_index): a
+    gather group's tables are (T, Ag), so that one gather yields the
+    (B, T, Ag) layout of the trace-product kernel; ``eye`` is the packed
+    identity as a (T, 1) column, for both groups' layouts."""
     if plan.x_dim is None or plan.y_dim is None or not plan.groups:
         raise ValueError("the batched sweep needs a SweepPlan with grid dims")
     gx, gy = plan.x_dim, plan.y_dim
     N = gx * gy
     groups = []
+
+    def table(a, dt=dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=device)
+
     for g in plan.groups:
         if g.win_radius is not None:
             r = g.win_radius
@@ -178,23 +196,31 @@ def prepare_batched_sweep(plan, dtype=torch.float32, device="cpu"):
             diag = np.asarray(g.R, np.float64)
         else:
             Ag, Mg, _ = g.H.shape
+            ti, tj = np.tril_indices(Mg)
             groups.append(
                 {
                     "kind": "dense",
-                    "H_flat": torch.as_tensor(g.H.reshape(Ag * Mg, N), dtype=dtype, device=device),
-                    "H": torch.as_tensor(g.H, dtype=dtype, device=device),
-                    "R": torch.as_tensor(g.R, dtype=dtype, device=device),
+                    "H_flat": table(g.H.reshape(Ag * Mg, N)),
+                    "H": table(g.H),
+                    # row-major positions of the (i, j) and (j, i) entries, i >= j
+                    "lower": table(ti * Mg + tj, torch.long),
+                    "upper": table(tj * Mg + ti, torch.long),
+                    "R": table(_packed_diag(np.asarray(g.R, np.float64))),  # (Ag, T)
+                    "eye": table(_packed_diag(np.ones(Mg))[:, None]),
                 }
             )
             continue
-        index = cells[:, :, None] * N + cells[:, None, :]  # (Ag, K, K) into P.flatten
-        vv = valid[:, :, None] & valid[:, None, :]
+        K = cells.shape[1]
+        ti, tj = np.tril_indices(K)
+        index = (cells[:, ti] * N + cells[:, tj]).T  # (T, Ag) into P.flatten
+        vv = (valid[:, ti] & valid[:, tj]).T
         groups.append(
             {
                 "kind": "gather",
-                "index": torch.as_tensor(index.reshape(-1), dtype=torch.long, device=device),
-                "vv": torch.as_tensor(vv, dtype=dtype, device=device),
-                "diag": torch.as_tensor(diag, dtype=dtype, device=device),
+                "index": table(index.reshape(-1), torch.long),
+                "vv": table(vv),
+                "diag": table(_packed_diag(diag).T),  # (T, Ag)
+                "eye": table(_packed_diag(np.ones(K))[:, None]),
             }
         )
     return {
@@ -204,18 +230,19 @@ def prepare_batched_sweep(plan, dtype=torch.float32, device="cpu"):
 
 
 def _gather_group_gains(P, Q, g, jitter, stream_dt, acc_dt):
-    """(B, Ag) gains of a one-hot (rf == 1) group: S and G blocks are
-    gathered entry by entry from P and Q.  Under fast_math the P entries
-    are read as bfloat16, like the JAX package's bf16 offset planes."""
+    """(B, Ag) gains of a one-hot (rf == 1) group: the packed S and G
+    blocks are gathered entry by entry from P and Q, straight into the
+    (B, T, Ag) layout.  Under fast_math the P entries are read as
+    bfloat16, like the JAX package's bf16 offset planes."""
     B, N, _ = P.shape
-    Ag, K, _ = g["vv"].shape
+    T, Ag = g["vv"].shape
     Pf = P.to(stream_dt).reshape(B, N * N)
-    S = Pf[:, g["index"]].to(acc_dt).view(B, Ag, K, K) * g["vv"]
-    S = S + torch.diag_embed(g["diag"].to(acc_dt))
+    S = Pf[:, g["index"]].to(acc_dt).view(B, T, Ag) * g["vv"]
+    S = S + g["diag"].to(acc_dt)
     if jitter:
-        S = S + jitter * _eye_like(S)
-    G = Q.reshape(B, N * N)[:, g["index"]].to(acc_dt).view(B, Ag, K, K) * g["vv"]
-    return kernels.spd_trace_product(S, G)
+        S = S + jitter * g["eye"]
+    G = Q.reshape(B, N * N)[:, g["index"]].to(acc_dt).view(B, T, Ag) * g["vv"]
+    return kernels.spd_trace_product_packed(S, G)
 
 
 def _dense_group_gains(P, Q, g, jitter, stream_dt, acc_dt):
@@ -226,7 +253,9 @@ def _dense_group_gains(P, Q, g, jitter, stream_dt, acc_dt):
       S[a, i, (j,b)]  = Σ_n H[a, i, n] T[a, (j,b), n]    Ag GEMMs, batched
 
     for X = P (innovation) and X = Q (gain numerator).  T is rounded to the
-    stream dtype and contracted in the accumulation dtype."""
+    stream dtype and contracted in the accumulation dtype.  The symmetrised
+    lower triangles are gathered from S straight into the (Ag, T, B)
+    layout of the trace-product kernel."""
     B, N, _ = P.shape
     Ag, Mg, _ = g["H"].shape
     Hf = g["H_flat"].to(stream_dt)
@@ -235,17 +264,16 @@ def _dense_group_gains(P, Q, g, jitter, stream_dt, acc_dt):
     def stage(X):
         Xt = X.to(stream_dt).permute(2, 0, 1).reshape(N, B * N)
         T = (Hf @ Xt).view(Ag, Mg * B, N)
-        return torch.bmm(Hg, T.to(acc_dt).mT).view(Ag, Mg, Mg, B)  # (a, i, j, b)
+        return torch.bmm(Hg, T.to(acc_dt).mT).view(Ag, Mg * Mg, B)  # (a, (i, j), b)
 
-    S = stage(P)
-    S = 0.5 * (S + S.transpose(1, 2)) + torch.diag_embed(g["R"].to(acc_dt))[..., None]
+    def symmetric_lower(X):  # (Ag, Mg·Mg, B) → (Ag, T, B); copies whole B-rows
+        return 0.5 * (X.index_select(1, g["lower"]) + X.index_select(1, g["upper"]))
+
+    S = symmetric_lower(stage(P)) + g["R"].to(acc_dt)[..., None]
     if jitter:
-        S = S + jitter * _eye_like(S[..., 0])[..., None]
-    G = stage(Q)
-    G = 0.5 * (G + G.transpose(1, 2))
-    S = S.permute(0, 3, 1, 2).contiguous()  # (Ag, B, Mg, Mg)
-    G = G.permute(0, 3, 1, 2).contiguous()
-    return kernels.spd_trace_product(S, G).T
+        S = S + jitter * g["eye"]
+    G = symmetric_lower(stage(Q))
+    return kernels.spd_trace_product_packed(S, G).T
 
 
 def kf_sweep_gains_batched(

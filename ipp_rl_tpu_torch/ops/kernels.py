@@ -1,8 +1,8 @@
 """Wrappers of the hand-written CUDA kernels in ``csrc/smallchol.cu``.
 
-``spd_inverse`` and ``spd_trace_product`` take CPU tensors to their plain
-PyTorch versions (ops/smallchol.py) and CUDA tensors to the kernels, with
-no fallback: a CUDA tensor the kernel cannot take raises.  Each wrapper
+``spd_inverse`` and ``spd_trace_product_packed`` take CPU tensors to their
+plain PyTorch versions (ops/smallchol.py) and CUDA tensors to the kernels,
+with no fallback: a CUDA tensor the kernel cannot take raises.  Each
 carries a plain integer ``launches`` that it increments where it launches
 its kernel and nowhere else, so a run can show that its path went through
 the kernels.
@@ -20,7 +20,6 @@ import os
 import pathlib
 import shutil
 import subprocess
-import threading
 import time
 from typing import Optional
 
@@ -41,8 +40,9 @@ NVCC_FLAGS = (
 )
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 
-_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+#: the kernels' largest M, read from the library when it is loaded
+_max_m = 0
 #: seconds the last build took (0.0 when a built library was reused)
 build_seconds = 0.0
 
@@ -86,69 +86,71 @@ def build() -> pathlib.Path:
     return path
 
 
-def _library() -> ctypes.CDLL:
-    global _lib
-    with _lock:
-        if _lib is None:
-            major, minor = torch.cuda.get_device_capability()
-            if (major, minor) != (9, 0):
-                raise RuntimeError(
-                    f"the kernels are built for sm_90a (Hopper); this card is sm_{major}{minor}"
-                )
-            lib = ctypes.CDLL(str(build()))
-            vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-            lib.smallchol_spd_inverse.argtypes = [vp, vp, ll, i, i, vp]
-            lib.smallchol_spd_inverse.restype = i
-            lib.smallchol_spd_trace_product.argtypes = [vp, vp, vp, ll, i, i, vp]
-            lib.smallchol_spd_trace_product.restype = i
-            lib.smallchol_max_m.argtypes = []
-            lib.smallchol_max_m.restype = i
-            lib.smallchol_error_string.argtypes = [i]
-            lib.smallchol_error_string.restype = ctypes.c_char_p
-            _lib = lib
-        return _lib
+def _load() -> ctypes.CDLL:
+    """Build if needed, load and bind the library; the handle and ``max_m``
+    are kept, so the wrappers' hot path is one global read."""
+    global _lib, _max_m
+    major, minor = torch.cuda.get_device_capability()
+    if (major, minor) != (9, 0):
+        raise RuntimeError(
+            f"the kernels are built for sm_90a (Hopper); this card is sm_{major}{minor}"
+        )
+    lib = ctypes.CDLL(str(build()))
+    vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.smallchol_spd_inverse.argtypes = [vp, vp, ll, i, i, vp]
+    lib.smallchol_spd_inverse.restype = i
+    lib.smallchol_spd_trace_product.argtypes = [vp, vp, vp, ll, ll, i, i, vp]
+    lib.smallchol_spd_trace_product.restype = i
+    lib.smallchol_max_m.argtypes = []
+    lib.smallchol_max_m.restype = i
+    lib.smallchol_error_string.argtypes = [i]
+    lib.smallchol_error_string.restype = ctypes.c_char_p
+    _max_m = lib.smallchol_max_m()
+    _lib = lib  # last: a concurrent first call at worst loads the file twice
+    return lib
 
 
-def _check_blocks(name: str, *tensors: torch.Tensor) -> tuple:
-    """Validate (..., M, M) CUDA inputs; return (n blocks, M, dtype code)."""
-    first = tensors[0]
-    if first.ndim < 2 or first.shape[-1] != first.shape[-2]:
-        raise ValueError(f"{name}: expected (..., M, M), got {tuple(first.shape)}")
-    for t in tensors:
+def _check(name: str, S: torch.Tensor, G: Optional[torch.Tensor] = None) -> int:
+    """Validate CUDA inputs; return the dtype code."""
+    for t in (S,) if G is None else (S, G):
         if not t.is_cuda:
             raise ValueError(f"{name}: all inputs must be CUDA tensors")
-        if t.shape != first.shape or t.dtype != first.dtype or t.device != first.device:
+        if t.shape != S.shape or t.dtype != S.dtype or t.device != S.device:
             raise ValueError(f"{name}: inputs differ in shape, dtype or device")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
-    if first.dtype not in _DTYPE_CODES:
-        raise TypeError(f"{name}: float32 or float64 only, got {first.dtype}")
-    M = first.shape[-1]
-    lib = _library()
-    if not 1 <= M <= lib.smallchol_max_m():
-        raise ValueError(f"{name}: M = {M} is outside 1..{lib.smallchol_max_m()}")
-    return first.numel() // (M * M), M, _DTYPE_CODES[first.dtype]
+    code = _DTYPE_CODES.get(S.dtype)
+    if code is None:
+        raise TypeError(f"{name}: float32 or float64 only, got {S.dtype}")
+    return code
+
+
+def _check_m(name: str, M: int) -> None:
+    if not 1 <= M <= _max_m:
+        raise ValueError(f"{name}: M = {M} is outside 1..{_max_m}")
 
 
 def _raise_on(name: str, err: int) -> None:
     if err != 0:
-        msg = _library().smallchol_error_string(err).decode() if err > 0 else "unsupported"
+        msg = _lib.smallchol_error_string(err).decode() if err > 0 else "unsupported"
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
-
-
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
 
 
 def spd_inverse(S: torch.Tensor) -> torch.Tensor:
     """Inverse of (..., M, M) SPD matrices (pivots clamped at 1e-30)."""
     if S.device.type == "cpu":
         return smallchol.spd_inverse(S)
-    n, M, code = _check_blocks("spd_inverse", S)
+    if S.ndim < 2 or S.shape[-1] != S.shape[-2]:
+        raise ValueError(f"spd_inverse: expected (..., M, M), got {tuple(S.shape)}")
+    code = _check("spd_inverse", S)
+    lib = _lib or _load()
+    M = S.shape[-1]
+    _check_m("spd_inverse", M)
     out = torch.empty_like(S)
+    n = S.numel() // (M * M)
     if n:
-        err = _library().smallchol_spd_inverse(
-            S.data_ptr(), out.data_ptr(), n, M, code, _stream()
+        err = lib.smallchol_spd_inverse(
+            S.data_ptr(), out.data_ptr(), n, M, code, torch.cuda.current_stream().cuda_stream
         )
         _raise_on("spd_inverse", err)
         spd_inverse.launches += 1
@@ -158,25 +160,33 @@ def spd_inverse(S: torch.Tensor) -> torch.Tensor:
 spd_inverse.launches = 0
 
 
-def spd_trace_product(S: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
-    """tr(S⁻¹G) for SPD S and symmetric G, (..., M, M) → (...); only the
-    lower triangles are read."""
+def spd_trace_product_packed(S: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
+    """tr(S⁻¹G) for SPD S and symmetric G given as packed lower triangles,
+    entries-major: (outer, T, inner) → (outer, inner), T = M(M+1)/2
+    (ops/smallchol.spd_trace_product_packed)."""
     if S.device.type == "cpu" and G.device.type == "cpu":
-        return smallchol.spd_trace_product(S, G)
-    n, M, code = _check_blocks("spd_trace_product", S, G)
-    out = torch.empty(S.shape[:-2], dtype=S.dtype, device=S.device)
-    if n:
-        err = _library().smallchol_spd_trace_product(
-            S.data_ptr(), G.data_ptr(), out.data_ptr(), n, M, code, _stream()
+        return smallchol.spd_trace_product_packed(S, G)
+    if S.ndim != 3:
+        raise ValueError(f"spd_trace_product: expected (outer, T, inner), got {tuple(S.shape)}")
+    code = _check("spd_trace_product", S, G)
+    lib = _lib or _load()
+    outer, T, inner = S.shape
+    M = smallchol.packed_m(T)
+    _check_m("spd_trace_product", M)
+    out = torch.empty((outer, inner), dtype=S.dtype, device=S.device)
+    if out.numel():
+        err = lib.smallchol_spd_trace_product(
+            S.data_ptr(), G.data_ptr(), out.data_ptr(), outer, inner, M, code,
+            torch.cuda.current_stream().cuda_stream,
         )
         _raise_on("spd_trace_product", err)
-        spd_trace_product.launches += 1
+        spd_trace_product_packed.launches += 1
     return out
 
 
-spd_trace_product.launches = 0
+spd_trace_product_packed.launches = 0
 
 
 def reset_launch_counts() -> None:
     spd_inverse.launches = 0
-    spd_trace_product.launches = 0
+    spd_trace_product_packed.launches = 0

@@ -12,8 +12,11 @@ kernels perform the same operations in the same order, one rounding per
 operation (built without FMA contraction), so on the card the two agree
 to the last bit on the same inputs.
 
-All functions treat the last two axes as the matrix and broadcast over
-leading batch axes; only the lower triangle of S (and of G) is read.
+The full-block functions treat the last two axes as the matrix and
+broadcast over leading batch axes; only the lower triangle of S (and of
+G) is read.  :func:`spd_trace_product_packed` reads the lower triangles
+already packed, entries-major, which is the layout its kernel loads with
+whole-warp contiguous reads.
 """
 
 from __future__ import annotations
@@ -26,23 +29,38 @@ import torch
 PIVOT_FLOOR = 1e-30
 
 
-def cholesky_ll(S: torch.Tensor) -> list:
-    """Lower Cholesky factor of (..., M, M) SPD matrices as a list of
-    lists of (...) tensors, L[i][j] for j <= i."""
-    M = S.shape[-1]
+def packed_index(i: int, j: int) -> int:
+    """Position of entry (i, j), i >= j, in a packed lower triangle: the
+    rows of the triangle one after another, k = i(i+1)/2 + j."""
+    return i * (i + 1) // 2 + j
+
+
+def packed_size(M: int) -> int:
+    return M * (M + 1) // 2
+
+
+def _cholesky(s, M: int) -> list:
+    """Unrolled Cholesky of the SPD matrix whose entry (i, j), i >= j, is
+    the tensor s(i, j); L[i][j] for j <= i."""
     L = [[None] * M for _ in range(M)]
     for j in range(M):
-        acc = S[..., j, j]
+        acc = s(j, j)
         for k in range(j):
             acc = acc - L[j][k] * L[j][k]
         L[j][j] = torch.sqrt(torch.clamp(acc, min=PIVOT_FLOOR))
         inv_d = 1.0 / L[j][j]
         for i in range(j + 1, M):
-            acc = S[..., i, j]
+            acc = s(i, j)
             for k in range(j):
                 acc = acc - L[i][k] * L[j][k]
             L[i][j] = acc * inv_d
     return L
+
+
+def cholesky_ll(S: torch.Tensor) -> list:
+    """Lower Cholesky factor of (..., M, M) SPD matrices as a list of
+    lists of (...) tensors, L[i][j] for j <= i."""
+    return _cholesky(lambda i, j: S[..., i, j], S.shape[-1])
 
 
 def _invert_lower(L: list, M: int) -> list:
@@ -79,21 +97,52 @@ def spd_inverse(S: torch.Tensor) -> torch.Tensor:
     return torch.stack(rows, dim=-2)
 
 
-def spd_trace_product(S: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
-    """tr(S⁻¹ · G) for SPD S and SYMMETRIC G, (..., M, M) → (...):
-    Cholesky → triangular inverse → Σ_{i>=j} (2−δ_ij)·S⁻¹[i,j]·G[i,j],
-    never forming S⁻¹.  This is the all-action sweep's per-action output
-    (ops/kalman.py)."""
-    M = S.shape[-1]
-    Li = _invert_lower(cholesky_ll(S), M)
+def _trace_product(s, g, M: int) -> torch.Tensor:
+    Li = _invert_lower(_cholesky(s, M), M)
     total = None
     for i in range(M):
         for j in range(i + 1):
-            term = _inverse_entry(Li, M, i, j) * G[..., i, j]
+            term = _inverse_entry(Li, M, i, j) * g(i, j)
             if i != j:
                 term = term + term
             total = term if total is None else total + term
     return total
+
+
+def spd_trace_product(S: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
+    """tr(S⁻¹ · G) for SPD S and SYMMETRIC G, (..., M, M) → (...):
+    Cholesky → triangular inverse → Σ_{i>=j} (2−δ_ij)·S⁻¹[i,j]·G[i,j],
+    never forming S⁻¹."""
+    return _trace_product(lambda i, j: S[..., i, j], lambda i, j: G[..., i, j], S.shape[-1])
+
+
+def packed_m(T: int) -> int:
+    """M of a packed lower triangle of T entries."""
+    M = int(round(((8 * T + 1) ** 0.5 - 1) / 2))
+    if packed_size(M) != T:
+        raise ValueError(f"{T} entries are no packed lower triangle")
+    return M
+
+
+def spd_trace_product_packed(S: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
+    """:func:`spd_trace_product` on packed lower triangles in the
+    entries-major layout (outer, T, inner) → (outer, inner): entry (i, j)
+    of block (o, n) is ``S[o, packed_index(i, j), n]``, T = M(M+1)/2.
+    The same operations in the same order, so the two agree to the last
+    bit on the same blocks.  This is the all-action sweep's per-action
+    output (ops/kalman.py)."""
+    M = packed_m(S.shape[-2])
+    return _trace_product(
+        lambda i, j: S[..., packed_index(i, j), :],
+        lambda i, j: G[..., packed_index(i, j), :],
+        M,
+    )
+
+
+def pack_lower(S: torch.Tensor) -> torch.Tensor:
+    """(..., M, M) → (..., T): the packed lower triangles."""
+    i, j = torch.tril_indices(S.shape[-1], S.shape[-1], device=S.device)
+    return S[..., i, j]
 
 
 def spd_cholesky_dense(S: torch.Tensor) -> torch.Tensor:

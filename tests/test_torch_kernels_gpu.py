@@ -2,6 +2,10 @@
 card, against their plain PyTorch versions, and the greedy slice on the
 card against the same slice on the CPU.
 
+``spd_trace_product`` is tested through its packed entry, the one the
+sweep calls, in both sweep layouts and against the full-block plain
+version.
+
 These tests need an NVIDIA Hopper card and the CUDA toolkit; elsewhere
 they skip.  They import no JAX, so they run where JAX is not installed:
 
@@ -49,15 +53,53 @@ def test_spd_inverse_kernel_is_bitwise_plain(cuda, M, dtype):
     assert torch.equal(got, smallchol.spd_inverse(S))
 
 
+def packed(X, outer, inner):
+    """(outer * inner, M, M) → the kernel's (outer, T, inner) layout."""
+    T = smallchol.packed_size(X.shape[-1])
+    return smallchol.pack_lower(X).view(outer, inner, T).transpose(1, 2).contiguous()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("M", [1, 2, 4, 9, 12])
 def test_spd_trace_product_kernel_is_bitwise_plain(cuda, M, dtype):
+    """The kernel on packed blocks against the full-block plain version."""
     S = random_spd(1000, M, dtype, seed=M).to(cuda)
     G = random_spd(1000, M, dtype, seed=100 + M).to(cuda)
-    got = kernels.spd_trace_product(S, G)
+    got = kernels.spd_trace_product_packed(packed(S, 1, 1000), packed(G, 1, 1000))
     torch.cuda.synchronize()
-    assert got.shape == (1000,)
-    assert torch.equal(got, smallchol.spd_trace_product(S, G))
+    assert got.shape == (1, 1000)
+    assert torch.equal(got[0], smallchol.spd_trace_product(S, G))
+
+
+@pytest.mark.parametrize("outer,inner", [(100, 64), (64, 100), (3, 1001)],
+                         ids=["dense", "gather", "ragged"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("M", list(range(1, 13)))
+def test_packed_trace_product_kernel_is_bitwise_plain(cuda, M, dtype, outer, inner):
+    """Both sweep layouts, (Ag, T, B) and (B, T, Ag), and an inner length
+    that is no multiple of the warp, with one clamped pivot."""
+    n = outer * inner
+    S = random_spd(n, M, dtype, seed=M)
+    S[7, -1, -1] -= 2.0 * S[7].diagonal().sum()  # indefinite: the last pivot is clamped
+    Sp = packed(S.to(cuda), outer, inner)
+    Gp = packed(random_spd(n, M, dtype, seed=200 + M).to(cuda), outer, inner)
+    got = kernels.spd_trace_product_packed(Sp, Gp)
+    torch.cuda.synchronize()
+    assert got.shape == (outer, inner) and bool(torch.isfinite(got).all())
+    assert torch.equal(got, smallchol.spd_trace_product_packed(Sp, Gp))
+
+
+@pytest.mark.parametrize("B", [1, 31, 4096, 4097])
+def test_inverse_tiles_cover_every_matrix(cuda, B):
+    """The CTA tiles of spd_inverse (32 matrices each) cover every matrix:
+    the output's memory is first filled with NaN, so a matrix no CTA wrote
+    shows."""
+    S = random_spd(B, 9, torch.float32, seed=B).to(cuda)
+    torch.full_like(S, float("nan"))  # freed at once: the output reuses its block
+    got = kernels.spd_inverse(S)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, smallchol.spd_inverse(S))
 
 
 def test_batch_dims_ragged_tail_and_clamp(cuda):
@@ -71,11 +113,11 @@ def test_batch_dims_ragged_tail_and_clamp(cuda):
 
 def test_launch_counts_and_empty_batch(cuda):
     S = random_spd(4, 9, torch.float32, seed=2).to(cuda)
-    n_inv, n_tr = kernels.spd_inverse.launches, kernels.spd_trace_product.launches
+    n_inv, n_tr = kernels.spd_inverse.launches, kernels.spd_trace_product_packed.launches
     kernels.spd_inverse(S)
-    kernels.spd_trace_product(S, S)
+    kernels.spd_trace_product_packed(packed(S, 1, 4), packed(S, 1, 4))
     assert kernels.spd_inverse.launches == n_inv + 1
-    assert kernels.spd_trace_product.launches == n_tr + 1
+    assert kernels.spd_trace_product_packed.launches == n_tr + 1
     empty = kernels.spd_inverse(S[:0])
     assert empty.shape == (0, 9, 9) and kernels.spd_inverse.launches == n_inv + 1
 
@@ -88,10 +130,15 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         kernels.spd_inverse(random_spd(2, 13, torch.float32, seed=4).to(cuda))
     with pytest.raises(TypeError):
         kernels.spd_inverse(S.half())
+    Sp = packed(S, 1, 4)
     with pytest.raises(ValueError):
-        kernels.spd_trace_product(S, S.double())
+        kernels.spd_trace_product_packed(Sp, Sp.double())
     with pytest.raises(ValueError):
-        kernels.spd_trace_product(S, S.cpu())
+        kernels.spd_trace_product_packed(Sp, Sp.cpu())
+    with pytest.raises(ValueError):
+        kernels.spd_trace_product_packed(Sp[:, :44], Sp[:, :44])  # 44 entries: no triangle
+    with pytest.raises(ValueError):
+        kernels.spd_trace_product_packed(Sp[0], Sp[0])  # not (outer, T, inner)
 
 
 def test_greedy_slice_on_card_matches_cpu(cuda):

@@ -91,10 +91,14 @@ def test_wrappers_take_plain_path_on_cpu():
     rng = np.random.default_rng(5)
     S = torch.from_numpy(random_spd(rng, 3, 9))
     G = torch.from_numpy(random_spd(rng, 3, 9))
-    before = (kernels.spd_inverse.launches, kernels.spd_trace_product.launches)
+    Sp, Gp = (smallchol.pack_lower(X).T.contiguous()[None] for X in (S, G))
+    before = (kernels.spd_inverse.launches, kernels.spd_trace_product_packed.launches)
     assert torch.equal(kernels.spd_inverse(S), smallchol.spd_inverse(S))
-    assert torch.equal(kernels.spd_trace_product(S, G), smallchol.spd_trace_product(S, G))
-    assert (kernels.spd_inverse.launches, kernels.spd_trace_product.launches) == before
+    assert torch.equal(kernels.spd_trace_product_packed(Sp, Gp),
+                       smallchol.spd_trace_product_packed(Sp, Gp))
+    assert torch.equal(kernels.spd_trace_product_packed(Sp, Gp)[0],
+                       smallchol.spd_trace_product(S, G))
+    assert (kernels.spd_inverse.launches, kernels.spd_trace_product_packed.launches) == before
 
 
 def test_wrappers_reject_non_cuda_non_cpu_tensors():

@@ -63,6 +63,18 @@ def test_configs_load_equal(name):
     assert dataclasses.asdict(load_config(path)) == dataclasses.asdict(jax_load_config(path))
 
 
+@pytest.mark.parametrize("name", ["example.yaml", "temperature_cmaes.yaml"])
+def test_port_configs_are_copies_of_the_jax_ones(name):
+    """The port reads its own YAMLs, byte-for-byte copies of the JAX
+    package's, which load to equal dataclasses in both packages."""
+    jax_dir = pathlib.Path(__file__).resolve().parents[1] / "ipp_rl_tpu" / "config"
+    assert CONFIG_DIR.resolve() != jax_dir
+    assert (CONFIG_DIR / name).read_bytes() == (jax_dir / name).read_bytes()
+    assert dataclasses.asdict(load_config(str(CONFIG_DIR / name))) == dataclasses.asdict(
+        jax_load_config(str(jax_dir / name))
+    )
+
+
 def test_small_cfg_round_trips(small_cfg):
     assert dataclasses.asdict(port_cfg(small_cfg)) == dataclasses.asdict(small_cfg)
 
