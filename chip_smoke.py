@@ -7,7 +7,7 @@ Run from the repository root with no arguments:
 
 It needs one CUDA card (an H100: the kernels are built for sm_90a) and
 the CUDA toolkit; it exits non-zero, printing no result, without them.
-Phases, each of which fails the run on a failed check:
+Phases, each of which fails the run on a failed check (none is caught):
 
 1. the card (``nvidia-smi`` name and power limit) and the build of
    ``ipp_rl_tpu_torch/csrc/smallchol.cu`` from the repository's source;
@@ -24,13 +24,32 @@ Phases, each of which fails the run on a failed check:
    wrapper's host time per call (``host_ms``), the plain version's and one
    library call's; for ``spd_inverse`` also the device time of one CTA's
    tile of 32 matrices (``one_cta_ms``: one thread's chain and a launch);
+   ``spd_inverse_factor`` (the search's edge update: S⁻¹ and the Cholesky
+   factor of S⁻¹) at B = 1024, one descent step of phase 5, at 1025
+   (ragged) and on clamped pivots, whose overflowing factor must hold its
+   inf and NaN entries where the plain version's are;
 3. the greedy slice through its entry points: canonical
    ``ipp_rl_tpu_torch/config/example.yaml``, ``IPPWorld(cfg, fast_sweeps=True)``,
    ``GreedyPlanner.run`` with B = 4096 for 10 replan steps, with the launch
    counters set to 0 just before and read just after;
 4. at B = 512, the same slice with the kernels and with their plain
    versions, from the same state and noise: the actions must agree and the
-   metric curves must match.
+   metric curves must match;
+5. the MCTS-zero deploy slice through its entry points at the canonical
+   width: mission 0 of example.yaml (128 channels, 10 encoder blocks, 3 + 3
+   head blocks, 16 planes on 100×100, 200 actions, 100 simulations,
+   horizon 5, float32), seeded random weights from ``init_network``,
+   ``ZeroPlanner.run`` in "reference" deploy mode at B = 1024 for 3 replan
+   steps with the launch counters set to 0 just before and read just
+   after; the root's visit total must be simulations − 1 for every mission
+   at every replan; then one more replan split by CUDA events into descent
+   (with the edge updates), leaf planes, network forward, and integrate +
+   backup;
+6. the committed 64-channel / 6-block checkpoint, read by the port's own
+   reader, in "clean" deploy mode at B = 256 for 3 steps, with the kernels
+   and with their plain versions from the same state, noise and generator
+   seed, under ``torch.use_deterministic_algorithms``: actions and root
+   visit counts identical, metric curves within ``METRIC_RTOL``.
 
 Float32 products run in full float32: TF32 is switched off for matmuls
 and cuDNN.  The last stdout line is ``{"ok": true, "device": {...}}``;
@@ -41,7 +60,9 @@ report goes to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -53,7 +74,12 @@ import torch
 from ipp_rl_tpu_torch.config import CONFIG_DIR, MissionConfig, load_config
 from ipp_rl_tpu_torch.env.world import IPPWorld
 from ipp_rl_tpu_torch.ops import kernels, smallchol
+from ipp_rl_tpu_torch.models.networks import plane_channels
 from ipp_rl_tpu_torch.planners import GreedyPlanner
+from ipp_rl_tpu_torch.planners.zero import ZeroPlanner
+from ipp_rl_tpu_torch.planners.zero.features import init_history, push_history
+from ipp_rl_tpu_torch.planners.zero.learn import load_checkpoint
+from ipp_rl_tpu_torch.planners.zero.train import inference_dtype, init_network, predict_fn
 
 ROOT = pathlib.Path(__file__).resolve().parent
 # published H100 SXM peaks (NVIDIA data sheet), at the full 700 W limit
@@ -64,6 +90,12 @@ T = M * (M + 1) // 2  # entries of a packed lower triangle
 ACTIONS_PER_GROUP = 100  # each of the canonical config's two sweep groups
 REPLAN_B, REPLAN_STEPS = 4096, 10
 AGREE_B, AGREE_STEPS = 512, 4
+ZERO_B, ZERO_STEPS = 1024, 3
+ZERO_AGREE_B, ZERO_AGREE_STEPS = 256, 3
+CHECKPOINT = ROOT / "runs" / "zero_canon_r5_best" / "checkpoints" / "shared_net.trained_model.ckpt"
+# the committed checkpoint's hyper-parameters (tests/test_learning_artifact.py)
+CHECKPOINT_HP = dict(num_channels=64, num_encoder_res_blocks=6, num_global_pooling_channels=32,
+                     max_valid_action_distance=11.5, unfloored_value_head=True)
 # the kernels repeat their plain versions' operations in the same order,
 # one rounding each: they are held to bitwise equality; the metric curves
 # of the agreement phase to this relative tolerance
@@ -141,13 +173,18 @@ def host_ms(fn, iters: int) -> float:
 
 # ------------------------------------------------------------ bound model
 
+def _cholesky_ops(m: int) -> int:
+    """Operations of the unrolled Cholesky, counted one per add, multiply,
+    divide, square root and compare."""
+    return sum(2 * j + 3 + (m - j - 1) * (2 * j + 1)  # pivot (j mul, j sub, clamp,
+               for j in range(m))  # sqrt, reciprocal), then the column below it
+
+
 def _inverse_factor_ops(m: int) -> int:
-    """Operations of the shared Cholesky + forward substitution, counted
-    one per add, multiply, divide, square root, compare and negation."""
-    ops = 0
+    """The Cholesky + forward substitution shared by the kernels (one more
+    per negation)."""
+    ops = _cholesky_ops(m)
     for j in range(m):
-        ops += 2 * j + 3  # pivot: j mul, j sub, clamp, sqrt, reciprocal
-        ops += (m - j - 1) * (2 * j + 1)  # column below the pivot
         ops += 1  # Li diagonal reciprocal
         ops += sum(2 * (i - j) + 1 for i in range(j + 1, m))  # Li entries
     return ops
@@ -156,6 +193,10 @@ def _inverse_factor_ops(m: int) -> int:
 def inverse_ops(m: int) -> int:
     entries = sum(2 * (m - i) - 1 for i in range(m) for _ in range(i + 1))
     return _inverse_factor_ops(m) + entries
+
+
+def inverse_factor_ops(m: int) -> int:
+    return inverse_ops(m) + _cholesky_ops(m)
 
 
 def trace_ops(m: int) -> int:
@@ -187,6 +228,15 @@ def make_indefinite(S: torch.Tensor) -> torch.Tensor:
 def packed(S: torch.Tensor, outer: int, inner: int) -> torch.Tensor:
     """(outer * inner, M, M) blocks → the kernel's (outer, T, inner) layout."""
     return smallchol.pack_lower(S).view(outer, inner, T).transpose(1, 2).contiguous()
+
+
+def compare_with_nan(name: str, got: torch.Tensor, want: torch.Tensor) -> None:
+    """Bitwise equal where finite, inf where the plain version has inf, NaN
+    where it has NaN (an overflowing factor of a clamped inverse)."""
+    same = bool(((got == want) | (torch.isnan(got) & torch.isnan(want))).all())
+    log(f"  {name}: bitwise_equal_or_both_nan={same}, "
+        f"{int((~torch.isfinite(want)).sum())} non-finite entries in the plain version")
+    check(same, f"{name}: kernel differs from its plain version")
 
 
 def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> dict:
@@ -291,6 +341,7 @@ def kernel_phase(gen: torch.Generator) -> list:
         "library_call": "torch.cholesky_solve(G, torch.linalg.cholesky(S)).diagonal(...).sum(-1)"
                         " on the full (n, 9, 9) blocks",
     })
+    rows.append(inverse_factor_row(gen))
     log(f"  spd_inverse on 32 matrices (one CTA): {rows[0]['one_cta_ms']:.4f} ms device")
     for r in rows:
         log(f"  {r['name']}: kernel {r['ms']:.4f} ms device (graph), {r['call_ms']:.4f} ms "
@@ -304,20 +355,68 @@ def kernel_phase(gen: torch.Generator) -> list:
     return rows
 
 
+def inverse_factor_row(gen: torch.Generator) -> dict:
+    """spd_inverse_factor: the B innovation matrices of one descent step of
+    the zero phase (every tree edge priced in that step)."""
+    S = random_spd(ZERO_B, gen)
+    inv, U = kernels.spd_inverse_factor(S)
+    want_inv, want_U = smallchol.spd_inverse_factor(S)
+    err = compare("spd_inverse_factor B=1024 (S^-1)", inv, want_inv)
+    err_u = compare("spd_inverse_factor B=1024 (U)", U, want_U)
+    err = {k: max(err[k], err_u[k]) for k in err}
+    check((U @ U.mT - want_inv).abs().max().item() <= 1e-3 * want_inv.abs().max().item(),
+          "spd_inverse_factor: U U^T is far from S^-1")
+    S_tail = random_spd(ZERO_B + 1, gen)
+    for got, want, part in zip(kernels.spd_inverse_factor(S_tail),
+                               smallchol.spd_inverse_factor(S_tail), ("S^-1", "U")):
+        compare(f"spd_inverse_factor B=1025 ({part})", got, want)
+    S_bad = make_indefinite(random_spd(ZERO_B + 1, gen))
+    for got, want, part in zip(kernels.spd_inverse_factor(S_bad),
+                               smallchol.spd_inverse_factor(S_bad), ("S^-1", "U")):
+        compare_with_nan(f"spd_inverse_factor indefinite (clamped pivot, {part})", got, want)
+    t = times(lambda: kernels.spd_inverse_factor(S), graph_launches=200, calls=200)
+    plain_ms = cuda_ms(lambda: smallchol.spd_inverse_factor(S), 10)
+    lib_ms = cuda_ms(lambda: torch.linalg.cholesky(
+        torch.cholesky_inverse(torch.linalg.cholesky(S))), 50)
+    nbytes = 3 * S.numel() * S.element_size()
+    b_ms, b_by = bound(nbytes, ZERO_B * inverse_factor_ops(M))
+    return {
+        "name": "spd_inverse_factor", "route": "cuda",
+        "source": "ipp_rl_tpu_torch/csrc/smallchol.cu",
+        "replaces": "ipp_rl_tpu/ops/kalman.py:107",
+        "shape": [ZERO_B, M, M], "dtype": "float32",
+        **err, **t, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "bound_bytes": nbytes, "library_ms": lib_ms,
+        "library_call": "torch.linalg.cholesky(torch.cholesky_inverse(torch.linalg.cholesky(S)))",
+    }
+
+
 # ------------------------------------------------------------ greedy slice
+
+KERNEL_NAMES = {  # wrapper attribute: name in the report
+    "spd_inverse": "spd_inverse",
+    "spd_inverse_factor": "spd_inverse_factor",
+    "spd_trace_product_packed": "spd_trace_product",
+}
+
+
+def launch_counts() -> dict:
+    return {name: getattr(kernels, attr).launches for attr, name in KERNEL_NAMES.items()}
+
 
 @contextlib.contextmanager
 def plain_versions():
-    """Route the sweep and the commit through the plain versions (for the
-    comparison only; the port itself has no such switch)."""
-    saved = kernels.spd_inverse, kernels.spd_trace_product_packed
-    kernels.spd_inverse, kernels.spd_trace_product_packed = (
-        smallchol.spd_inverse, smallchol.spd_trace_product_packed,
-    )
+    """Route the sweep, the commit and the edge update through the plain
+    versions (for the comparison only; the port itself has no such
+    switch)."""
+    saved = {attr: getattr(kernels, attr) for attr in KERNEL_NAMES}
+    for attr in KERNEL_NAMES:
+        setattr(kernels, attr, getattr(smallchol, attr))
     try:
         yield
     finally:
-        kernels.spd_inverse, kernels.spd_trace_product_packed = saved
+        for attr, fn in saved.items():
+            setattr(kernels, attr, fn)
 
 
 def greedy_phase(cfg) -> dict:
@@ -334,13 +433,10 @@ def greedy_phase(cfg) -> dict:
     res = planner.run(REPLAN_B, max_steps=REPLAN_STEPS, generator=gen)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {
-        "spd_inverse": kernels.spd_inverse.launches,
-        "spd_trace_product": kernels.spd_trace_product_packed.launches,
-    }
+    launches = launch_counts()
     log(f"  launches in the run: {launches}")
-    for name, count in launches.items():
-        check(count > 0, f"{name} was not launched on the main path")
+    for name in ("spd_inverse", "spd_trace_product"):
+        check(launches[name] > 0, f"{name} was not launched on the greedy path")
 
     unc = res.metrics["uncertainty"]
     check(unc.shape == (REPLAN_B, REPLAN_STEPS + 1), f"uncertainty shape {unc.shape}")
@@ -397,6 +493,229 @@ def agreement_phase(cfg) -> dict:
             "worst_metric_rel_diff": worst}
 
 
+# ------------------------------------------------------------ MCTS-zero slice
+
+class RootVisits:
+    """Records the root visit counts of every search a planner runs (a
+    wrapper around its ``mcts.search``, in this script only)."""
+
+    def __init__(self, planner):
+        self.Ns, self.Nsa = [], []
+        search = planner.mcts.search
+
+        def recorded(*args, **kw):
+            tree, mask = search(*args, **kw)
+            self.Ns.append(tree.Ns[:, 0].clone())
+            self.Nsa.append(tree.Nsa[:, 0].clone())
+            return tree, mask
+
+        planner.mcts.search = recorded
+
+
+class PhaseTimer:
+    """Device time of named phases of one replan: CUDA events recorded
+    around each call of the wrapped methods, summed after a synchronise."""
+
+    def __init__(self):
+        self.events = {}
+
+    def wrap(self, obj, attr: str, phase: str) -> None:
+        fn = getattr(obj, attr)
+
+        def timed(*args, **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            self.events.setdefault(phase, []).append((start, end))
+            return out
+
+        if hasattr(fn, "infer_dtype"):
+            timed.infer_dtype = fn.infer_dtype
+        setattr(obj, attr, timed)
+
+    def ms(self) -> dict:
+        torch.cuda.synchronize()
+        return {k: sum(s.elapsed_time(e) for s, e in v) for k, v in self.events.items()}
+
+
+def network_flops(net, planes: torch.Tensor, mask: torch.Tensor) -> int:
+    """Multiply-adds × 2 of the convolutions and dense layers of one
+    forward over ``planes``, counted from their output shapes by hooks."""
+    total = 0
+
+    def count(module, inputs, out):
+        nonlocal total
+        w = module.weight
+        per_output = w[0].numel() if isinstance(module, torch.nn.Conv2d) else w.shape[1]
+        total += 2 * out.numel() * per_output
+
+    layers = [m for m in net.modules() if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    hooks = [m.register_forward_hook(count) for m in layers]
+    try:
+        with torch.no_grad():
+            net(planes, mask)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total
+
+
+def zero_mission(cfg, **hp_changes):
+    mc = cfg.missions[0]
+    check(mc.type == "mcts_zero", "example.yaml's first mission is not mcts_zero")
+    return dataclasses.replace(mc, hyper_params=dataclasses.replace(mc.hyper_params,
+                                                                    **hp_changes))
+
+
+def zero_phase(cfg) -> dict:
+    mc = zero_mission(cfg)
+    hp = mc.hyper_params
+    sims = hp.num_mcts_simulations
+    log(f"== MCTS-zero slice: example.yaml mission 0, {hp.num_channels} channels, "
+        f"{hp.num_encoder_res_blocks} encoder blocks, {sims} simulations, horizon "
+        f"{mc.episode_horizon}, B={ZERO_B}, {ZERO_STEPS} replan steps")
+    world = IPPWorld(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    net = init_network(cfg, hp, gen)
+    predict = predict_fn(net, dtype=inference_dtype(hp))
+    log(f"  network: {sum(p.numel() for p in net.parameters())} parameters, seeded init "
+        f"{time.perf_counter() - t0:.2f} s, inference dtype {inference_dtype(hp) or 'float32'}")
+    # warm-up at the run's shapes with 2 simulations: cuDNN handles, allocator
+    ZeroPlanner(world, zero_mission(cfg, num_mcts_simulations=2), predict,
+                net.state_dict()).run(ZERO_B, max_steps=1, generator=gen)
+    planner = ZeroPlanner(world, mc, predict, net.state_dict(), deploy_mode="reference")
+    visits = RootVisits(planner)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = planner.run(ZERO_B, max_steps=ZERO_STEPS, generator=gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  launches in the run: {launches}")
+    for name in ("spd_inverse", "spd_inverse_factor"):
+        check(launches[name] > 0, f"{name} was not launched on the zero path")
+
+    check(len(visits.Ns) == ZERO_STEPS, f"{len(visits.Ns)} searches for {ZERO_STEPS} replans")
+    root_ns = torch.stack(visits.Ns)  # (steps, B)
+    log(f"  root visit totals: min {root_ns.min().item():g}, max {root_ns.max().item():g} "
+        f"(want {sims - 1} for every mission at every replan)")
+    check(bool((root_ns == sims - 1).all()), "a root's visit total is not simulations - 1")
+    unc = res.metrics["uncertainty"]
+    check(unc.shape == (ZERO_B, ZERO_STEPS + 1), f"uncertainty shape {unc.shape}")
+    for k in ("rmse", "mll", "uncertainty", "uncertainty_difference"):
+        check(bool(np.isfinite(res.metrics[k]).all()), f"metric {k} not finite")
+    mean_unc = unc.mean(axis=0)
+    log(f"  mean uncertainty per step: {np.array2string(mean_unc, precision=3)}")
+    check(bool(np.all(np.diff(mean_unc) < 0)), "uncertainty does not fall step over step")
+
+    # one more steady replan, split into phases by CUDA events
+    state = res.final_state
+    hist = init_history(cfg, hp, ZERO_B, world.dtype, world.device)
+    hist = push_history(hist, state.cov, state.pos, state.budget / cfg.constraints.budget)
+    timer = PhaseTimer()
+    mcts = planner.mcts
+    timer.wrap(mcts, "_descend_step", "descent")
+    timer.wrap(mcts, "_leaf_outputs", "leaf_planes")
+    timer.wrap(mcts, "leaf_planes", "leaf_planes")
+    timer.wrap(mcts, "predict", "forward")
+    timer.wrap(mcts, "_integrate_eval", "integrate_backup")
+    timer.wrap(mcts, "_backup", "integrate_backup")
+    timer.wrap(planner, "_replan", "replan")
+    planner._replan(state, hist, gen, None)
+    split = timer.ms()
+    split["other"] = split["replan"] - sum(v for k, v in split.items() if k != "replan")
+    log("  one replan by CUDA events: " + ", ".join(f"{k} {v:.1f} ms" for k, v in split.items()))
+    n = cfg.environment.num_cells
+    flops = network_flops(net, torch.zeros((ZERO_B, n, n, plane_channels(hp)), device=world.device),
+                          torch.ones((ZERO_B, world.num_actions), device=world.device))
+    forwards = len(timer.events["forward"])
+    tflops = flops / (split["forward"] / forwards * 1e-3) / 1e12
+    log(f"  network forward: {flops / 1e12:.3f} TFLOP per simulation at B={ZERO_B}, "
+        f"{forwards} forwards, {split['forward'] / forwards:.2f} ms each, {tflops:.1f} TFLOP/s")
+
+    out = {
+        "batch": ZERO_B, "steps": ZERO_STEPS, "simulations": sims,
+        "channels": hp.num_channels, "encoder_blocks": hp.num_encoder_res_blocks,
+        "run_wall_s": wall,
+        "ms_per_step": wall / ZERO_STEPS * 1e3,
+        "replans_per_s": ZERO_B * ZERO_STEPS / wall,
+        "ms_per_mission_replan": wall / (ZERO_B * ZERO_STEPS) * 1e3,
+        "peak_mem_gb": peak,
+        "root_visits": [root_ns.min().item(), root_ns.max().item()],
+        "mean_uncertainty": mean_unc.tolist(),
+        "launches": launches,
+        "launches_per_replan": {k: v / ZERO_STEPS for k, v in launches.items()},
+        "replan_split_ms": split,
+        "forward_flops": flops, "forward_ms": split["forward"] / forwards,
+        "forward_tflops_per_s": tflops,
+    }
+    log(f"  run: {out['ms_per_step']:.1f} ms per replan step, {out['replans_per_s']:.1f} "
+        f"replans/s, {out['ms_per_mission_replan']:.3f} ms per mission-replan; "
+        f"peak {peak:.2f} GB")
+    return out
+
+
+def zero_agreement_phase(cfg) -> dict:
+    log(f"== kernels vs plain versions on the zero slice: committed checkpoint, clean, "
+        f"B={ZERO_AGREE_B}, {ZERO_AGREE_STEPS} steps, deterministic algorithms")
+    mc = zero_mission(cfg, **CHECKPOINT_HP)
+    world = IPPWorld(cfg)
+    net = load_checkpoint(str(CHECKPOINT), init_network(cfg, mc.hyper_params,
+                                                       torch.Generator(device="cuda")))
+    planner = ZeroPlanner(world, mc, predict_fn(net), net.state_dict(), deploy_mode="clean")
+    visits = RootVisits(planner)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    state0 = world.init_state(ZERO_AGREE_B, gen)
+    noise = torch.randn((ZERO_AGREE_STEPS, ZERO_AGREE_B, world.H.shape[1]), generator=gen,
+                        device="cuda")
+    torch.backends.cudnn.benchmark = False
+    # deterministic cuBLAS asks for this workspace setting, read at each call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        def run():
+            return planner.run(ZERO_AGREE_B, ZERO_AGREE_STEPS, init_state=state0, noise=noise,
+                               generator=torch.Generator(device="cuda").manual_seed(3))
+
+        kernels.reset_launch_counts()
+        with_kernels = run()
+        launches = launch_counts()
+        with plain_versions():
+            plain = run()
+        check(launch_counts() == launches, "a kernel launched under plain_versions()")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for name in ("spd_inverse", "spd_inverse_factor"):
+        check(launches[name] > 0, f"{name} was not launched in the agreement run")
+    same = np.array_equal(with_kernels.waypoints, plain.waypoints, equal_nan=True)
+    check(same, "the kernels and the plain versions chose different actions")
+    k_visits, p_visits = visits.Nsa[:ZERO_AGREE_STEPS], visits.Nsa[ZERO_AGREE_STEPS:]
+    check(all(torch.equal(a, b) for a, b in zip(k_visits, p_visits)),
+          "root visit counts differ between kernels and plain versions")
+    check(all(bool((n == mc.hyper_params.num_mcts_simulations - 1).all()) for n in visits.Ns),
+          "a root's visit total is not simulations - 1")
+    worst = 0.0
+    for k, v in plain.metrics.items():
+        got = with_kernels.metrics[k]
+        check(np.array_equal(np.isnan(got), np.isnan(v)), f"metric {k}: NaN patterns differ")
+        rel = np.nanmax(np.abs(got - v)) / max(np.nanmax(np.abs(v)), 1e-30)
+        worst = max(worst, float(rel))
+    unc = with_kernels.metrics["uncertainty"].mean(axis=0)
+    log(f"  actions and root visits identical; worst metric rel diff {worst:.3e} "
+        f"(tolerance {METRIC_RTOL:g}); launches with kernels {launches}; mean uncertainty "
+        f"{np.array2string(unc, precision=3)}")
+    check(worst <= METRIC_RTOL, "metric curves differ between kernels and plain versions")
+    return {"batch": ZERO_AGREE_B, "steps": ZERO_AGREE_STEPS, "actions_identical": True,
+            "root_visits_identical": True, "worst_metric_rel_diff": worst,
+            "launches": launches, "mean_uncertainty": unc.tolist()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs an NVIDIA card",
@@ -428,19 +747,24 @@ def main() -> int:
     cfg = load_config(str(CONFIG_DIR / "example.yaml"))
     greedy = greedy_phase(cfg)
     agreement = agreement_phase(cfg)
-    for r in rows:
-        r["launches"] = greedy["launches"][r["name"]]
+    zero = zero_phase(cfg)
+    zero_agreement = zero_agreement_phase(cfg)
+    for r in rows:  # over both main paths, each counted from 0
+        r["launches_by_path"] = {"greedy": greedy["launches"][r["name"]],
+                                 "zero": zero["launches"][r["name"]]}
+        r["launches"] = sum(r["launches_by_path"].values())
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "card": card, "kind": kind, "torch": torch.__version__,
         "cuda": torch.version.cuda, "build_s": build_s, "kernels": rows,
-        "greedy": greedy, "agreement": agreement,
+        "greedy": greedy, "agreement": agreement, "zero": zero,
+        "zero_agreement": zero_agreement,
     }, indent=1))
 
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -1,11 +1,14 @@
-// Small-SPD kernels for Hopper (sm_90a): batched inverse and trace product.
+// Small-SPD kernels for Hopper (sm_90a): batched inverse, inverse with the
+// Cholesky factor of the inverse, and trace product.
 //
-// Both entry points share one device function, `inverse_factor`: the
-// unrolled Cholesky factorisation of an M x M SPD matrix (pivot clamped
-// at 1e-30 before the square root) followed by forward substitution for
-// Li = L^-1.  Then
+// All entry points share two device functions: `cholesky`, the unrolled
+// Cholesky factorisation of an M x M SPD matrix (pivot clamped at 1e-30
+// before the square root), and `inverse_factor`, which follows it with
+// forward substitution for Li = L^-1.  Then
 //
 //   spd_inverse        writes S^-1 = Li^T Li              (n, M, M) row-major -> (n, M, M)
+//   spd_inverse_factor writes S^-1 and U = chol(S^-1),    (n, M, M) -> 2 x (n, M, M)
+//                      lower, U U^T = S^-1, zeros above the diagonal
 //   spd_trace_product  writes tr(S^-1 G) = sum_{i>=j} (2 - d_ij) S^-1[i,j] G[i,j]
 //                      for symmetric G, never storing S^-1, from packed lower
 //                      triangles, entries-major           (outer, T, inner) x 2 -> (outer, inner)
@@ -18,6 +21,12 @@
 //                       (ipp_rl_tpu/ops/pallas_kernels.py:71, body :29).  On the
 //                       port's main path it inverts the B innovation matrices of
 //                       the belief commit (ops/kalman.kf_update).
+//   spd_inverse_factor - the unrolled XLA pair `spd_inverse` then
+//                       `spd_cholesky_dense` of the edge update `kf_gain_factor_t`
+//                       (ipp_rl_tpu/ops/kalman.py:107-108, ops/smallchol.py:91,112).
+//                       On the port's MCTS-zero path it runs once per descent
+//                       step of every simulation, on the B innovation matrices
+//                       of the tree edges being priced.
 //   spd_trace_product - the unrolled XLA program `spd_trace_product`
 //                       (ipp_rl_tpu/ops/smallchol.py:51), the per-action output of
 //                       the all-action sweep (ops/kalman.kf_sweep_gains_batched):
@@ -28,6 +37,8 @@
 // Bound on an H100 (3.35 TB/s, 67 TFLOP/s f32 outside the tensor cores):
 //   spd_inverse at B = 4096, M = 9, f32 moves 2 x 4096 x 81 x 4 B = 2.65 MB
 //   (0.79 us) and does ~3 MFLOP: bytes-bound, and below the cost of a launch.
+//   spd_inverse_factor at B = 1024, M = 9, f32 moves 3 x 1024 x 81 x 4 B =
+//   1.0 MB (0.30 us) and does ~1.6 MFLOP: a launch costs more than either.
 //   spd_trace_product at 819,200 blocks reads two packed triangles and
 //   writes one value per block, (2 x 45 + 1) x 4 B = 364 B, so 298 MB
 //   (89 us) for ~0.7 GFLOP (~10 us): bytes-bound.
@@ -45,7 +56,11 @@
 //   consecutive matrices, which is one contiguous range of memory.  The
 //   warp copies it into shared memory with 16-byte vector loads, each
 //   thread inverts its matrix there and writes S^-1 back in place, and the
-//   warp stores the tile with 16-byte vector stores.  A matrix's stride of
+//   warp stores the tile with 16-byte vector stores.
+//   spd_inverse_factor: the same tile, with a second pass over it: after
+//   S^-1 is stored, each thread factors its S^-1 from shared memory,
+//   writes U in place and the warp stores the tile again.  One launch
+//   takes the place of the ~350 small operations of the unrolled pair.  A matrix's stride of
 //   M*M words is odd at M = 9, so the per-thread shared reads and writes
 //   are free of bank conflicts.  B = 4096 gives 128 CTAs for the 132 SMs.
 // The ragged tail is masked by index, with no padding.
@@ -94,11 +109,10 @@ struct Packed {
   }
 };
 
-// Li = L^-1 (lower triangle) for the SPD matrix whose entry (i, j), i >= j,
-// is s(i, j); only the lower triangle is read.
+// L, lower, with L L^T = the SPD matrix whose entry (i, j), i >= j, is
+// s(i, j); only the lower triangle is read.
 template <int M, typename T, typename Entry>
-__device__ __forceinline__ void inverse_factor(const Entry& s, T (&Li)[M][M]) {
-  T L[M][M];
+__device__ __forceinline__ void cholesky(const Entry& s, T (&L)[M][M]) {
 #pragma unroll
   for (int j = 0; j < M; ++j) {
     T acc = s(j, j);
@@ -114,6 +128,14 @@ __device__ __forceinline__ void inverse_factor(const Entry& s, T (&Li)[M][M]) {
       L[i][j] = a * inv_d;
     }
   }
+}
+
+// Li = L^-1 (lower triangle) for the SPD matrix whose entry (i, j), i >= j,
+// is s(i, j); only the lower triangle is read.
+template <int M, typename T, typename Entry>
+__device__ __forceinline__ void inverse_factor(const Entry& s, T (&Li)[M][M]) {
+  T L[M][M];
+  cholesky<M>(s, L);
 #pragma unroll
   for (int j = 0; j < M; ++j) {
     Li[j][j] = T(1) / L[j][j];
@@ -152,6 +174,35 @@ __device__ __forceinline__ void copy_tile(T* __restrict__ dst, const T* __restri
   }
 }
 
+// overwrite the row-major SPD matrix m (shared memory) with its inverse
+template <int M, typename T>
+__device__ __forceinline__ void invert_in_place(T* m) {
+  T Li[M][M];
+  inverse_factor<M>(RowMajor<M, T>{m}, Li);
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+#pragma unroll
+    for (int j = 0; j <= i; ++j) {
+      const T v = inverse_entry<M>(Li, i, j);
+      m[i * M + j] = v;
+      m[j * M + i] = v;
+    }
+  }
+}
+
+// overwrite the row-major SPD matrix m (shared memory) with its lower
+// Cholesky factor, zeros above the diagonal
+template <int M, typename T>
+__device__ __forceinline__ void factor_in_place(T* m) {
+  T L[M][M];
+  cholesky<M>(RowMajor<M, T>{m}, L);
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+#pragma unroll
+    for (int j = 0; j < M; ++j) m[i * M + j] = j <= i ? L[i][j] : T(0);
+  }
+}
+
 template <int M, typename T>
 __global__ void __launch_bounds__(kInverseTile)
 spd_inverse_kernel(const T* __restrict__ s, T* __restrict__ out, int64_t n) {
@@ -160,22 +211,29 @@ spd_inverse_kernel(const T* __restrict__ s, T* __restrict__ out, int64_t n) {
   const int mats = n - b0 < kInverseTile ? static_cast<int>(n - b0) : kInverseTile;
   copy_tile(tile, s + b0 * (M * M), mats * M * M);
   __syncthreads();
-  if (static_cast<int>(threadIdx.x) < mats) {
-    T* m = tile + threadIdx.x * (M * M);
-    T Li[M][M];
-    inverse_factor<M>(RowMajor<M, T>{m}, Li);
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-#pragma unroll
-      for (int j = 0; j <= i; ++j) {
-        const T v = inverse_entry<M>(Li, i, j);
-        m[i * M + j] = v;
-        m[j * M + i] = v;
-      }
-    }
-  }
+  if (static_cast<int>(threadIdx.x) < mats) invert_in_place<M>(tile + threadIdx.x * (M * M));
   __syncthreads();
   copy_tile(out + b0 * (M * M), tile, mats * M * M);
+}
+
+template <int M, typename T>
+__global__ void __launch_bounds__(kInverseTile)
+spd_inverse_factor_kernel(const T* __restrict__ s, T* __restrict__ inv,
+                          T* __restrict__ chol, int64_t n) {
+  __shared__ __align__(16) T tile[kInverseTile * M * M];
+  const int64_t b0 = static_cast<int64_t>(blockIdx.x) * kInverseTile;
+  const int mats = n - b0 < kInverseTile ? static_cast<int>(n - b0) : kInverseTile;
+  const bool mine = static_cast<int>(threadIdx.x) < mats;
+  T* m = tile + threadIdx.x * (M * M);
+  copy_tile(tile, s + b0 * (M * M), mats * M * M);
+  __syncthreads();
+  if (mine) invert_in_place<M>(m);
+  __syncthreads();
+  copy_tile(inv + b0 * (M * M), tile, mats * M * M);
+  __syncthreads();  // the store reads every matrix before any is overwritten
+  if (mine) factor_in_place<M>(m);
+  __syncthreads();
+  copy_tile(chol + b0 * (M * M), tile, mats * M * M);
 }
 
 template <int M, typename T>
@@ -208,6 +266,14 @@ void launch_inverse(const void* s, void* out, int64_t n, cudaStream_t stream) {
   const unsigned blocks = static_cast<unsigned>((n + kInverseTile - 1) / kInverseTile);
   spd_inverse_kernel<M, T><<<blocks, kInverseTile, 0, stream>>>(
       static_cast<const T*>(s), static_cast<T*>(out), n);
+}
+
+template <int M, typename T>
+void launch_inverse_factor(const void* s, void* inv, void* chol, int64_t n,
+                           cudaStream_t stream) {
+  const unsigned blocks = static_cast<unsigned>((n + kInverseTile - 1) / kInverseTile);
+  spd_inverse_factor_kernel<M, T><<<blocks, kInverseTile, 0, stream>>>(
+      static_cast<const T*>(s), static_cast<T*>(inv), static_cast<T*>(chol), n);
 }
 
 template <int M, typename T>
@@ -244,6 +310,13 @@ struct InverseLaunch {
   template <int M, typename T> void run() const { launch_inverse<M, T>(s, out, n, stream); }
 };
 
+struct InverseFactorLaunch {
+  const void* s; void* inv; void* chol; int64_t n; cudaStream_t stream;
+  template <int M, typename T> void run() const {
+    launch_inverse_factor<M, T>(s, inv, chol, n, stream);
+  }
+};
+
 struct TraceLaunch {
   const void* s; const void* g; void* out; int64_t outer; int64_t inner; cudaStream_t stream;
   template <int M, typename T> void run() const {
@@ -272,6 +345,13 @@ int smallchol_spd_inverse(const void* s, void* out, long long n, int m, int dtyp
                           void* stream) {
   if (n <= 0) return 0;
   return launch(m, dtype, InverseLaunch{s, out, n, static_cast<cudaStream_t>(stream)});
+}
+
+int smallchol_spd_inverse_factor(const void* s, void* inv, void* chol, long long n, int m,
+                                 int dtype, void* stream) {
+  if (n <= 0) return 0;
+  return launch(m, dtype,
+                InverseFactorLaunch{s, inv, chol, n, static_cast<cudaStream_t>(stream)});
 }
 
 int smallchol_spd_trace_product(const void* s, const void* g, void* out, long long outer,

@@ -11,7 +11,9 @@ tr(S⁻¹·G) with G = H·Q·Hᵀ, Q = P·diag(m)·P.
 
 Every function broadcasts over leading batch axes (the mission axis is an
 explicit dimension; nothing is vmapped).  The (M, M) inverses go through
-``ops/kernels.spd_inverse`` and the sweep's per-action trace products
+``ops/kernels.spd_inverse`` (``spd_inverse_factor`` where the Cholesky
+factor of the inverse follows, in the search's edge update) and the
+sweep's per-action trace products
 through ``ops/kernels.spd_trace_product_packed``: hand-written CUDA on the
 card, the plain versions of ops/smallchol.py on the CPU.  The sweep builds
 its S and G blocks as packed lower triangles, entries-major, which is the
@@ -67,8 +69,7 @@ def kf_gain_factor_t(
     S = 0.5 * (S + S.mT) + torch.diag_embed(R_diag)
     if jitter:
         S = S + jitter * _eye_like(S)
-    S_inv = kernels.spd_inverse(S.contiguous())
-    U = spd_cholesky_dense(S_inv)  # lower, U·Uᵀ = S⁻¹
+    S_inv, U = kernels.spd_inverse_factor(S.contiguous())  # U lower, U·Uᵀ = S⁻¹
     return U.mT @ A, S_inv
 
 

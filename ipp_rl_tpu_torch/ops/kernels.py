@@ -1,7 +1,8 @@
 """Wrappers of the hand-written CUDA kernels in ``csrc/smallchol.cu``.
 
-``spd_inverse`` and ``spd_trace_product_packed`` take CPU tensors to their
-plain PyTorch versions (ops/smallchol.py) and CUDA tensors to the kernels,
+``spd_inverse``, ``spd_inverse_factor`` and ``spd_trace_product_packed``
+take CPU tensors to their plain PyTorch versions (ops/smallchol.py) and
+CUDA tensors to the kernels,
 with no fallback: a CUDA tensor the kernel cannot take raises.  Each
 carries a plain integer ``launches`` that it increments where it launches
 its kernel and nowhere else, so a run can show that its path went through
@@ -99,6 +100,8 @@ def _load() -> ctypes.CDLL:
     vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.smallchol_spd_inverse.argtypes = [vp, vp, ll, i, i, vp]
     lib.smallchol_spd_inverse.restype = i
+    lib.smallchol_spd_inverse_factor.argtypes = [vp, vp, vp, ll, i, i, vp]
+    lib.smallchol_spd_inverse_factor.restype = i
     lib.smallchol_spd_trace_product.argtypes = [vp, vp, vp, ll, ll, i, i, vp]
     lib.smallchol_spd_trace_product.restype = i
     lib.smallchol_max_m.argtypes = []
@@ -160,6 +163,32 @@ def spd_inverse(S: torch.Tensor) -> torch.Tensor:
 spd_inverse.launches = 0
 
 
+def spd_inverse_factor(S: torch.Tensor) -> tuple:
+    """(S⁻¹, U) for (..., M, M) SPD matrices, U the lower Cholesky factor
+    of S⁻¹ (ops/smallchol.spd_inverse_factor): one launch for both."""
+    if S.device.type == "cpu":
+        return smallchol.spd_inverse_factor(S)
+    if S.ndim < 2 or S.shape[-1] != S.shape[-2]:
+        raise ValueError(f"spd_inverse_factor: expected (..., M, M), got {tuple(S.shape)}")
+    code = _check("spd_inverse_factor", S)
+    lib = _lib or _load()
+    M = S.shape[-1]
+    _check_m("spd_inverse_factor", M)
+    inv, chol = torch.empty_like(S), torch.empty_like(S)
+    n = S.numel() // (M * M)
+    if n:
+        err = lib.smallchol_spd_inverse_factor(
+            S.data_ptr(), inv.data_ptr(), chol.data_ptr(), n, M, code,
+            torch.cuda.current_stream().cuda_stream,
+        )
+        _raise_on("spd_inverse_factor", err)
+        spd_inverse_factor.launches += 1
+    return inv, chol
+
+
+spd_inverse_factor.launches = 0
+
+
 def spd_trace_product_packed(S: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
     """tr(S⁻¹G) for SPD S and symmetric G given as packed lower triangles,
     entries-major: (outer, T, inner) → (outer, inner), T = M(M+1)/2
@@ -189,4 +218,5 @@ spd_trace_product_packed.launches = 0
 
 def reset_launch_counts() -> None:
     spd_inverse.launches = 0
+    spd_inverse_factor.launches = 0
     spd_trace_product_packed.launches = 0

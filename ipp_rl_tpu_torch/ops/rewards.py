@@ -1,4 +1,5 @@
-"""Reward and adaptive-mask ops (reference planning/common/rewards.py:8-31).
+"""Reward, adaptive-mask and value-target ops (reference
+planning/common/rewards.py:8-39).
 
 Port of ``ipp_rl_tpu/ops/rewards.py``.  Reward = information gain per
 unit cost: (tr(P) − tr(P')) / (cost + 1), optionally restricted to the
@@ -26,3 +27,15 @@ def adaptive_mask(
 def reward_from_gain(gain: torch.Tensor, cost: torch.Tensor) -> torch.Tensor:
     """(tr(P) − tr(P')) / (cost + 1) (reference planning/common/rewards.py:15-31)."""
     return gain / (cost + 1.0)
+
+
+def scale_value_target(value: torch.Tensor) -> torch.Tensor:
+    """√(v + 1) − 1 compression of value targets (reference
+    planning/common/rewards.py:34-35)."""
+    return torch.sqrt(value + 1.0) - 1.0
+
+
+def invert_scaled_value_target(value: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`scale_value_target`: v² + 2v (reference
+    planning/common/rewards.py:38-39)."""
+    return torch.square(value) + 2.0 * value

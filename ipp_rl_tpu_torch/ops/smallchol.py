@@ -6,7 +6,8 @@ and the S⁻¹ = L⁻ᵀL⁻¹ product are unrolled into elementwise operations 
 batch-shaped tensors, exactly as in the JAX package.
 
 These are the reference implementations of the hand-written CUDA kernels
-in ``csrc/smallchol.cu``: ``ops/kernels.py`` calls them for CPU tensors,
+in ``csrc/smallchol.cu`` (``spd_inverse``, ``spd_inverse_factor``,
+``spd_trace_product_packed``): ``ops/kernels.py`` calls them for CPU tensors,
 and the tests and ``chip_smoke.py`` hold the kernels against them.  The
 kernels perform the same operations in the same order, one rounding per
 operation (built without FMA contraction), so on the card the two agree
@@ -155,3 +156,12 @@ def spd_cholesky_dense(S: torch.Tensor) -> torch.Tensor:
         for i in range(M)
     ]
     return torch.stack(rows, dim=-2)
+
+
+def spd_inverse_factor(S: torch.Tensor) -> tuple:
+    """(S⁻¹, U) for (..., M, M) SPD S, with U the lower Cholesky factor of
+    S⁻¹ (U·Uᵀ = S⁻¹): the two steps of the search's edge update
+    (ipp_rl_tpu/ops/kalman.py:107-108, kf_gain_factor_t), one after the
+    other, so the kernel that fuses them stays bitwise equal to this."""
+    S_inv = spd_inverse(S)
+    return S_inv, spd_cholesky_dense(S_inv)

@@ -4,7 +4,9 @@ card against the same slice on the CPU.
 
 ``spd_trace_product`` is tested through its packed entry, the one the
 sweep calls, in both sweep layouts and against the full-block plain
-version.
+version.  ``spd_inverse_factor`` (the search's edge update) returns the
+inverse and its Cholesky factor; where a clamped pivot makes the factor
+overflow, its inf and NaN entries must sit where the plain version's do.
 
 These tests need an NVIDIA Hopper card and the CUDA toolkit; elsewhere
 they skip.  They import no JAX, so they run where JAX is not installed:
@@ -111,6 +113,48 @@ def test_batch_dims_ragged_tail_and_clamp(cuda):
     assert got[1, 5, -1, -1].item() == pytest.approx(1e30, rel=1e-5)
 
 
+def same(got, want):
+    """Bitwise equal, NaN in the same places (payloads aside)."""
+    return bool(((got == want) | (torch.isnan(got) & torch.isnan(want))).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("M", list(range(1, 13)))
+def test_spd_inverse_factor_kernel_is_bitwise_plain(cuda, M, dtype):
+    S = random_spd(257, M, dtype, seed=300 + M)
+    S[5, -1, -1] -= 2.0 * S[5].diagonal().sum()  # indefinite: the last pivot is clamped
+    S = S.to(cuda)
+    inv, U = kernels.spd_inverse_factor(S)
+    torch.cuda.synchronize()
+    want_inv, want_U = smallchol.spd_inverse_factor(S)
+    assert torch.equal(inv, want_inv)
+    assert same(U, want_U)
+    assert torch.equal(torch.triu(U, 1), torch.zeros_like(U))
+    assert bool(torch.isfinite(U[:5]).all()) and bool(torch.isfinite(U[6:]).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B", [1, 31, 1024, 1025, 4097])
+def test_inverse_factor_tiles_cover_every_matrix(cuda, B, dtype):
+    """Both outputs are first filled with NaN and handed to the kernel
+    directly, so a matrix that no CTA wrote shows."""
+    S = random_spd(B, 9, dtype, seed=B).to(cuda)
+    kernels.spd_inverse_factor(S[:1])  # builds and loads the library
+    inv = torch.full_like(S, float("nan"))
+    U = torch.full_like(S, float("nan"))
+    err = kernels._lib.smallchol_spd_inverse_factor(
+        S.data_ptr(), inv.data_ptr(), U.data_ptr(), B, 9, kernels._DTYPE_CODES[dtype],
+        torch.cuda.current_stream().cuda_stream,
+    )
+    torch.cuda.synchronize()
+    assert err == 0
+    want_inv, want_U = smallchol.spd_inverse_factor(S)
+    assert bool(torch.isfinite(inv).all()) and bool(torch.isfinite(U).all())
+    assert torch.equal(inv, want_inv) and torch.equal(U, want_U)
+    got_inv, got_U = kernels.spd_inverse_factor(S)  # and through the wrapper
+    assert torch.equal(got_inv, want_inv) and torch.equal(got_U, want_U)
+
+
 def test_launch_counts_and_empty_batch(cuda):
     S = random_spd(4, 9, torch.float32, seed=2).to(cuda)
     n_inv, n_tr = kernels.spd_inverse.launches, kernels.spd_trace_product_packed.launches
@@ -120,6 +164,14 @@ def test_launch_counts_and_empty_batch(cuda):
     assert kernels.spd_trace_product_packed.launches == n_tr + 1
     empty = kernels.spd_inverse(S[:0])
     assert empty.shape == (0, 9, 9) and kernels.spd_inverse.launches == n_inv + 1
+    n_fac = kernels.spd_inverse_factor.launches
+    kernels.spd_inverse_factor(S)
+    inv, U = kernels.spd_inverse_factor(S[:0])
+    assert inv.shape == U.shape == (0, 9, 9)
+    assert kernels.spd_inverse_factor.launches == n_fac + 1
+    kernels.reset_launch_counts()
+    assert (kernels.spd_inverse.launches, kernels.spd_inverse_factor.launches,
+            kernels.spd_trace_product_packed.launches) == (0, 0, 0)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -130,6 +182,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         kernels.spd_inverse(random_spd(2, 13, torch.float32, seed=4).to(cuda))
     with pytest.raises(TypeError):
         kernels.spd_inverse(S.half())
+    with pytest.raises(ValueError):
+        kernels.spd_inverse_factor(S.mT)  # not contiguous
+    with pytest.raises(ValueError):
+        kernels.spd_inverse_factor(random_spd(2, 13, torch.float32, seed=4).to(cuda))
+    with pytest.raises(TypeError):
+        kernels.spd_inverse_factor(S.half())
     Sp = packed(S, 1, 4)
     with pytest.raises(ValueError):
         kernels.spd_trace_product_packed(Sp, Sp.double())

@@ -1,5 +1,6 @@
-"""Boundaries of the PyTorch/CUDA port: it imports neither JAX nor the JAX
-package, its entry points run on the card unless told otherwise, and
+"""Boundaries of the PyTorch/CUDA port: it imports neither JAX, flax,
+msgpack nor the JAX package (the card's machine has none of them), its
+entry points run on the card unless told otherwise, and
 ``chip_smoke.py`` fails (printing no result) without a card or without the
 rest of the repository."""
 
@@ -14,7 +15,9 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "ipp_rl_tpu_torch"
-FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|chex|ipp_rl_tpu)(\.|\s|$)", re.M)
+FORBIDDEN = re.compile(
+    r"^\s*(import|from)\s+(jax|flax|optax|chex|msgpack|ipp_rl_tpu)(\.|\s|$)", re.M
+)
 
 
 def _port_sources():
@@ -27,19 +30,24 @@ def test_port_sources_import_no_jax():
 
 
 def test_port_imports_with_jax_blocked():
-    """Every module of the port imports in a process where importing jax,
-    flax or ipp_rl_tpu raises."""
+    """Every module of the port, the checkpoint reader included, imports in
+    a process where importing jax, flax, msgpack or ipp_rl_tpu raises."""
     modules = [
         ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
         for p in sorted(PACKAGE.rglob("*.py"))
     ]
     code = (
         "import sys\n"
-        "for m in ('jax', 'flax', 'ipp_rl_tpu'): sys.modules[m] = None\n"
+        "for m in ('jax', 'flax', 'msgpack', 'ipp_rl_tpu'): sys.modules[m] = None\n"
         "import importlib\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
-        "assert not any(k == 'jax' or k.startswith(('jax.', 'ipp_rl_tpu.')) "
+        "assert not any(k in ('jax', 'flax', 'msgpack') "
+        "or k.startswith(('jax.', 'flax.', 'msgpack.', 'ipp_rl_tpu.')) "
         "for k in sys.modules if sys.modules[k] is not None)\n"
+        "from ipp_rl_tpu_torch.serialization import read_checkpoint\n"
+        "tree = read_checkpoint('runs/zero_canon_r5_best/checkpoints/"
+        "shared_net.trained_model.ckpt')\n"
+        "assert tree['params']['encoder']['stem']['Conv_0']['kernel'].shape == (7, 7, 16, 64)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
@@ -49,7 +57,10 @@ def test_port_imports_with_jax_blocked():
 def test_entry_points_default_to_cuda(small_cfg):
     from ipp_rl_tpu_torch import resolve_device
     from ipp_rl_tpu_torch.convert import belief_state_from_arrays
+    from ipp_rl_tpu_torch.config import MCTSZeroHyperParams, MissionConfig
     from ipp_rl_tpu_torch.env.world import IPPWorld
+    from ipp_rl_tpu_torch.planners.zero import ZeroPlanner
+    from ipp_rl_tpu_torch.planners.zero.train import init_network, predict_fn
 
     from test_torch_world import port_cfg
 
@@ -59,7 +70,17 @@ def test_entry_points_default_to_cuda(small_cfg):
         IPPWorld(port_cfg(small_cfg))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         belief_state_from_arrays({})
+    cfg = port_cfg(small_cfg)
+    hp = MCTSZeroHyperParams(num_channels=8, num_global_pooling_channels=4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_network(cfg, hp, torch.Generator())
     assert resolve_device("cpu") == torch.device("cpu")
+    # the deploy planner runs on its world's device: the card unless told
+    world = IPPWorld(cfg, device="cpu")
+    net = init_network(cfg, hp, torch.Generator(), device="cpu")
+    planner = ZeroPlanner(world, MissionConfig(type="mcts_zero", hyper_params=hp),
+                          predict_fn(net), net.state_dict())
+    assert planner.world.device == torch.device("cpu")
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -105,3 +105,39 @@ def test_wrappers_reject_non_cuda_non_cpu_tensors():
     S = torch.eye(9, device="meta")[None]
     with pytest.raises(ValueError):
         kernels.spd_inverse(S)
+
+
+@pytest.mark.parametrize("M", list(range(1, 13)))
+def test_spd_inverse_factor_matches_jax(M):
+    """(S⁻¹, chol(S⁻¹)) — the plain version of the edge update's kernel —
+    against the JAX package's spd_cholesky_dense(spd_inverse(S)) in
+    float64 (ipp_rl_tpu/ops/kalman.py:107-108)."""
+    rng = np.random.default_rng(M)
+    S = random_spd(rng, 17, M)
+    inv, U = smallchol.spd_inverse_factor(torch.from_numpy(S))
+    want_inv = jax_smallchol.spd_inverse(jnp.asarray(S))
+    want_U = np.asarray(jax_smallchol.spd_cholesky_dense(want_inv))
+    np.testing.assert_allclose(inv.numpy(), np.asarray(want_inv), rtol=1e-12, atol=1e-15)
+    np.testing.assert_allclose(U.numpy(), want_U, rtol=1e-12, atol=1e-15)
+    assert not np.triu(U.numpy(), 1).any()
+    np.testing.assert_allclose(U.numpy() @ np.swapaxes(U.numpy(), -1, -2),
+                               np.linalg.inv(S), rtol=1e-8, atol=1e-12)
+
+
+def test_spd_inverse_factor_clamps_pivots():
+    """An indefinite S: the clamped pivot gives the inverse entries near
+    1e30, and their factor overflows where the JAX package's does (the
+    same inf and NaN entries); the plain wrapper path counts no launch."""
+    rng = np.random.default_rng(7)
+    S = indefinite(rng, 9, 9)
+    before = kernels.spd_inverse_factor.launches
+    inv, U = kernels.spd_inverse_factor(torch.from_numpy(S))
+    assert kernels.spd_inverse_factor.launches == before
+    want_inv = jax_smallchol.spd_inverse(jnp.asarray(S))
+    want_U = np.asarray(jax_smallchol.spd_cholesky_dense(want_inv))
+    assert np.all(np.isfinite(inv.numpy())) and not np.all(np.isfinite(U.numpy()))
+    np.testing.assert_allclose(inv.numpy(), np.asarray(want_inv), rtol=1e-12)
+    np.testing.assert_allclose(U.numpy(), want_U, rtol=1e-12, atol=1e-15)  # NaN where JAX's
+    ref_inv = smallchol.spd_inverse(torch.from_numpy(S))
+    assert torch.equal(inv, ref_inv)
+    np.testing.assert_array_equal(U.numpy(), smallchol.spd_cholesky_dense(ref_inv).numpy())
