@@ -24,10 +24,15 @@ Phases, each of which fails the run on a failed check (none is caught):
    wrapper's host time per call (``host_ms``), the plain version's and one
    library call's; for ``spd_inverse`` also the device time of one CTA's
    tile of 32 matrices (``one_cta_ms``: one thread's chain and a launch);
-   ``spd_inverse_factor`` (the search's edge update: S⁻¹ and the Cholesky
-   factor of S⁻¹) at B = 1024, one descent step of phase 5, at 1025
-   (ragged) and on clamped pivots, whose overflowing factor must hold its
-   inf and NaN entries where the plain version's are;
+   ``spd_inverse_factor`` (S⁻¹ and the Cholesky factor of S⁻¹, the
+   parent's edge update) at B = 1024, at 1025 (ragged) and on clamped
+   pivots, whose overflowing factor must hold its inf and NaN entries where
+   the plain version's are; ``edge_factor_gain`` (the search's edge update
+   from S_raw and A to the edge factor and its gain) on the inputs of one
+   descent step of phase 5 (beliefs after three commits, canonical actions,
+   the adaptive mask) at B = 1024 and 1025 and on clamped pivots, NaN
+   matched to NaN, with the parent's tail (the eager operations around
+   ``spd_inverse_factor``) timed beside it;
 3. the greedy slice through its entry points: canonical
    ``ipp_rl_tpu_torch/config/example.yaml``, ``IPPWorld(cfg, fast_sweeps=True)``,
    ``GreedyPlanner.run`` with B = 4096 for 10 replan steps, with the launch
@@ -42,7 +47,9 @@ Phases, each of which fails the run on a failed check (none is caught):
    ``ZeroPlanner.run`` in "reference" deploy mode at B = 1024 for 3 replan
    steps with the launch counters set to 0 just before and read just
    after; the root's visit total must be simulations − 1 for every mission
-   at every replan; then one more replan split by CUDA events into descent
+   at every replan, ``edge_factor_gain`` must launch once per descent step
+   and ``spd_inverse_factor`` not at all; then one more replan split by CUDA
+   events into descent
    (with the edge updates), leaf planes, network forward, and integrate +
    backup;
 6. the committed 64-channel / 6-block checkpoint, read by the port's own
@@ -74,6 +81,7 @@ import torch
 from ipp_rl_tpu_torch.config import CONFIG_DIR, MissionConfig, load_config
 from ipp_rl_tpu_torch.env.world import IPPWorld
 from ipp_rl_tpu_torch.ops import kernels, smallchol
+from ipp_rl_tpu_torch.ops.rewards import adaptive_mask
 from ipp_rl_tpu_torch.models.networks import plane_channels
 from ipp_rl_tpu_torch.planners import GreedyPlanner
 from ipp_rl_tpu_torch.planners.zero import ZeroPlanner
@@ -197,6 +205,18 @@ def inverse_ops(m: int) -> int:
 
 def inverse_factor_ops(m: int) -> int:
     return inverse_ops(m) + _cholesky_ops(m)
+
+
+def edge_ops(m: int, n: int, masked: bool, round_bf16: bool) -> int:
+    """Operations of edge_factor_gain for one mission: the symmetrised
+    lower triangle (add, halve, add R or 0), the inverse and its factor,
+    Uᵀ·A (m products and m − 1 sums per entry), the optional round trip,
+    the squares and their sums over m, the mask, and the gain's n − 1 sums
+    (the warp's zero padding is not counted)."""
+    sym = 3 * m * (m + 1) // 2
+    wct = m * n * (2 * m - 1) + (2 * m * n if round_bf16 else 0)
+    sq = m * n + (m - 1) * n + (n if masked else 0)
+    return sym + inverse_factor_ops(m) + wct + sq + n - 1
 
 
 def trace_ops(m: int) -> int:
@@ -342,6 +362,7 @@ def kernel_phase(gen: torch.Generator) -> list:
                         " on the full (n, 9, 9) blocks",
     })
     rows.append(inverse_factor_row(gen))
+    rows.append(edge_factor_gain_row(gen))
     log(f"  spd_inverse on 32 matrices (one CTA): {rows[0]['one_cta_ms']:.4f} ms device")
     for r in rows:
         log(f"  {r['name']}: kernel {r['ms']:.4f} ms device (graph), {r['call_ms']:.4f} ms "
@@ -391,12 +412,107 @@ def inverse_factor_row(gen: torch.Generator) -> dict:
     }
 
 
+def descent_step_inputs(world, B: int, gen: torch.Generator):
+    """The edge update's inputs as one descent step of phase 5 builds them:
+    GP-prior beliefs after three commits of random actions of the canonical
+    table, the adaptive mask of that state, random actions a, A = H[a]·P
+    and S_raw = A·H[a]ᵀ."""
+    state = world.init_state(B, gen)
+    for _ in range(3):
+        step = torch.randint(0, world.num_actions, (B,), generator=gen, device="cuda")
+        state = world.step_index(state, step, generator=gen)
+    a = torch.randint(0, world.num_actions, (B,), generator=gen, device="cuda")
+    scen = world.cfg.scenario
+    mask = adaptive_mask(state.mean, torch.diagonal(state.cov, dim1=-2, dim2=-1),
+                         scen.value_threshold, scen.interval_factor)
+    H = world.H[a]
+    A = H @ state.cov
+    return A @ H.mT, A, world.R_diag, a, mask
+
+
+def previous_edge_tail(S_raw, A, R_table, a, mask):
+    """The edge update's tail as the parent ran it (the unrolled eager
+    operations around K3), for the comparison only."""
+    S = 0.5 * (S_raw + S_raw.mT) + torch.diag_embed(R_table[a])
+    _, U = kernels.spd_inverse_factor(S.contiguous())
+    WcT = U.mT @ A
+    return WcT, torch.sum(torch.sum(WcT * WcT, dim=-2) * mask, dim=-1)
+
+
+def library_edge_tail(S_raw, A, R_table, a, mask):
+    S = 0.5 * (S_raw + S_raw.mT) + torch.diag_embed(R_table[a])
+    U = torch.linalg.cholesky(torch.cholesky_inverse(torch.linalg.cholesky(S)))
+    WcT = U.mT @ A
+    return WcT, torch.sum(torch.sum(WcT * WcT, dim=-2) * mask, dim=-1)
+
+
+def edge_factor_gain_row(gen: torch.Generator) -> dict:
+    """edge_factor_gain: the B edge updates of one descent step of the zero
+    phase, at B = 1024, at 1025 (ragged) and on clamped pivots."""
+    cfg = load_config(str(CONFIG_DIR / "example.yaml"))
+    world = IPPWorld(cfg)
+    args = descent_step_inputs(world, ZERO_B, gen)
+    S_raw, A, R, a, mask = args
+    B, m, n = A.shape
+    WcT, gain = kernels.edge_factor_gain(*args)
+    want_wct, want_gain = smallchol.edge_factor_gain(*args)
+    err = compare(f"edge_factor_gain B={B} (WcT)", WcT, want_wct)
+    err_g = compare(f"edge_factor_gain B={B} (gain)", gain, want_gain)
+    err = {k: max(err[k], err_g[k]) for k in err}
+    ref_wct, ref_gain = library_edge_tail(*(x.double() if x.is_floating_point() else x
+                                            for x in args))
+    check((gain.double() - ref_gain).abs().max().item() <= 1e-4 * ref_gain.abs().max().item(),
+          "edge_factor_gain: gain far from the float64 library route")
+    check(torch.allclose((WcT.double().mT @ WcT.double()), ref_wct.mT @ ref_wct, rtol=1e-3,
+                         atol=1e-5), "edge_factor_gain: Wc Wc^T far from the float64 library route")
+    tail = descent_step_inputs(world, ZERO_B + 1, gen)
+    for got, want, part in zip(kernels.edge_factor_gain(*tail),
+                               smallchol.edge_factor_gain(*tail), ("WcT", "gain")):
+        compare(f"edge_factor_gain B={ZERO_B + 1} ({part})", got, want)
+    bad = list(descent_step_inputs(world, ZERO_B + 1, gen))
+    bad[0] = make_indefinite(bad[0])
+    for got, want, part in zip(kernels.edge_factor_gain(*bad),
+                               smallchol.edge_factor_gain(*bad), ("WcT", "gain")):
+        compare_with_nan(f"edge_factor_gain indefinite (clamped pivot, {part})", got, want)
+    t = times(lambda: kernels.edge_factor_gain(*args), graph_launches=200, calls=200)
+    # what bounds it: one CTA (4 missions: one warp's chain and a launch),
+    # and the whole batch with one column (the factorisations without Uᵀ·A)
+    few = (S_raw[:4], A[:4], R, a[:4], mask[:4])
+    t["one_cta_ms"] = graph_ms(lambda: kernels.edge_factor_gain(*few), 200)
+    one_col = (S_raw, A[..., :1].contiguous(), R, a, mask[:, :1].contiguous())
+    t["one_column_ms"] = graph_ms(lambda: kernels.edge_factor_gain(*one_col), 200)
+    previous = times(lambda: previous_edge_tail(*args), graph_launches=50, calls=50)
+    plain_ms = cuda_ms(lambda: smallchol.edge_factor_gain(*args), 10)
+    lib_ms = cuda_ms(lambda: library_edge_tail(*args), 50)
+    elt = A.element_size()
+    nbytes = ((S_raw.numel() + 2 * A.numel() + B + B * m + mask.numel()) * elt
+              + a.numel() * a.element_size())
+    b_ms, b_by = bound(nbytes, B * edge_ops(m, n, masked=True, round_bf16=False))
+    log(f"  edge_factor_gain vs the parent's tail (gather, symmetrise, spd_inverse_factor, "
+        f"U^T A, sums): {t['ms']:.4f} / {previous['ms']:.4f} ms device, {t['call_ms']:.4f} / "
+        f"{previous['call_ms']:.4f} ms per call, host {t['host_ms']:.4f} / "
+        f"{previous['host_ms']:.4f} ms; one CTA {t['one_cta_ms']:.4f} ms, one column "
+        f"{t['one_column_ms']:.4f} ms device")
+    return {
+        "name": "edge_factor_gain", "route": "cuda",
+        "source": "ipp_rl_tpu_torch/csrc/smallchol.cu",
+        "replaces": "ipp_rl_tpu/planners/zero/mcts.py:187",
+        "shape": [B, m, n], "dtype": "float32",
+        **err, **t, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "bound_bytes": nbytes, "library_ms": lib_ms,
+        "library_call": "cholesky(cholesky_inverse(cholesky(S))), U.mT @ A, squares, sum "
+                        "(after the symmetrisation)",
+        "previous_tail": previous,
+    }
+
+
 # ------------------------------------------------------------ greedy slice
 
 KERNEL_NAMES = {  # wrapper attribute: name in the report
     "spd_inverse": "spd_inverse",
     "spd_inverse_factor": "spd_inverse_factor",
     "spd_trace_product_packed": "spd_trace_product",
+    "edge_factor_gain": "edge_factor_gain",
 }
 
 
@@ -512,6 +628,19 @@ class RootVisits:
         planner.mcts.search = recorded
 
 
+def count_calls(obj, attr: str) -> list:
+    """Counts the calls of obj.attr in a one-element list (the wrapper is
+    set on the instance; deleting it restores the method)."""
+    fn, calls = getattr(obj, attr), [0]
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return fn(*args, **kw)
+
+    setattr(obj, attr, counted)
+    return calls
+
+
 class PhaseTimer:
     """Device time of named phases of one replan: CUDA events recorded
     around each call of the wrapped methods, summed after a synchronise."""
@@ -590,6 +719,7 @@ def zero_phase(cfg) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
+    steps = count_calls(planner.mcts, "_descend_step")
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     res = planner.run(ZERO_B, max_steps=ZERO_STEPS, generator=gen)
@@ -597,9 +727,13 @@ def zero_phase(cfg) -> dict:
     wall = time.perf_counter() - t0
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
-    log(f"  launches in the run: {launches}")
-    for name in ("spd_inverse", "spd_inverse_factor"):
+    log(f"  launches in the run: {launches}; descent steps {steps[0]}")
+    for name in ("spd_inverse", "edge_factor_gain"):
         check(launches[name] > 0, f"{name} was not launched on the zero path")
+    check(launches["edge_factor_gain"] == steps[0],
+          "edge_factor_gain did not launch once per descent step")
+    check(launches["spd_inverse_factor"] == 0, "spd_inverse_factor launched on the zero path")
+    del planner.mcts._descend_step  # the class's method again
 
     check(len(visits.Ns) == ZERO_STEPS, f"{len(visits.Ns)} searches for {ZERO_STEPS} replans")
     root_ns = torch.stack(visits.Ns)  # (steps, B)
@@ -651,6 +785,7 @@ def zero_phase(cfg) -> dict:
         "mean_uncertainty": mean_unc.tolist(),
         "launches": launches,
         "launches_per_replan": {k: v / ZERO_STEPS for k, v in launches.items()},
+        "descent_steps": steps[0],
         "replan_split_ms": split,
         "forward_flops": flops, "forward_ms": split["forward"] / forwards,
         "forward_tflops_per_s": tflops,
@@ -691,7 +826,7 @@ def zero_agreement_phase(cfg) -> dict:
         check(launch_counts() == launches, "a kernel launched under plain_versions()")
     finally:
         torch.use_deterministic_algorithms(False)
-    for name in ("spd_inverse", "spd_inverse_factor"):
+    for name in ("spd_inverse", "edge_factor_gain"):
         check(launches[name] > 0, f"{name} was not launched in the agreement run")
     same = np.array_equal(with_kernels.waypoints, plain.waypoints, equal_nan=True)
     check(same, "the kernels and the plain versions chose different actions")
@@ -744,6 +879,10 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
     rows = kernel_phase(gen)
+    # the graph capture of the parent's edge tail leaves a cuBLAS workspace
+    # (32 MiB) on its side stream; release it so the slices' peaks count
+    # only their own memory
+    torch._C._cuda_clearCublasWorkspaces()
     cfg = load_config(str(CONFIG_DIR / "example.yaml"))
     greedy = greedy_phase(cfg)
     agreement = agreement_phase(cfg)

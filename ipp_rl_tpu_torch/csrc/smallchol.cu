@@ -1,7 +1,8 @@
 // Small-SPD kernels for Hopper (sm_90a): batched inverse, inverse with the
-// Cholesky factor of the inverse, and trace product.
+// Cholesky factor of the inverse, trace product, and the search's edge
+// update from (S, A) to the whitened gain factor and its gain.
 //
-// All entry points share two device functions: `cholesky`, the unrolled
+// The first three entry points share two device functions: `cholesky`, the unrolled
 // Cholesky factorisation of an M x M SPD matrix (pivot clamped at 1e-30
 // before the square root), and `inverse_factor`, which follows it with
 // forward substitution for Li = L^-1.  Then
@@ -12,6 +13,8 @@
 //   spd_trace_product  writes tr(S^-1 G) = sum_{i>=j} (2 - d_ij) S^-1[i,j] G[i,j]
 //                      for symmetric G, never storing S^-1, from packed lower
 //                      triangles, entries-major           (outer, T, inner) x 2 -> (outer, inner)
+//   edge_factor_gain   writes WcT = U^T A and its masked gain from S_raw and A,
+//                      U = chol(S^-1) (below)     (n, M, M), (n, M, N) -> (n, M, N), (n,)
 //
 // T = M(M+1)/2, and entry (i, j), i >= j, of block (o, c) lies at
 // (o*T + i(i+1)/2 + j)*inner + c.
@@ -65,6 +68,50 @@
 //   are free of bank conflicts.  B = 4096 gives 128 CTAs for the 132 SMs.
 // The ragged tail is masked by index, with no padding.
 //
+// edge_factor_gain: the whole small-matrix tail of the search's edge update
+// (ipp_rl_tpu/planners/zero/mcts.py:187-207, ZeroMCTS.edge_update, with
+// ipp_rl_tpu/ops/kalman.py:88-126, kf_gain_factor_t and _small_mm), per
+// mission b with action a[b]:
+//   S    = 0.5 (S_raw + S_raw^T) + diag(R[a[b]])      S_raw = A H^T, (M, M)
+//   U    = chol(S^-1)                                 S^-1 is not stored
+//   WcT  = U^T A in _small_mm order: row m is U[0,m] A[0], then + U[k,m] A[k]
+//          for k = 1..M-1, the zero terms above U's diagonal kept
+//   WcT  = bf16(WcT) when round_bf16 (round to nearest even, and back)
+//   sq_n = sum_m WcT[m,n]^2 (m in order) * mask[n]
+//   gain = sum_n sq_n in the warp order below
+// It replaces K3 and the ~12 eager launches around it per descent step
+// (the R gather, symmetrisation, U^T A, casts and sums).
+//
+//   Bound at B = 1024, M = 9, N = 100, f32 (H100: 3.35 TB/s, 67 TFLOP/s
+//   f32): it reads S_raw and A (81 + 900 words) and writes WcT and the gain
+//   (900 + 1 words) per mission, ~7.7 MB, plus R rows, the indices and a
+//   (B, N) mask (~0.4 MB): ~2.4 us.  It does ~20 kFLOP per mission
+//   (U^T A is 15.3k of it), ~20 MFLOP in all: 0.3 us.  Bytes-bound.
+//   No tensor cores: f32 products run in full f32 everywhere in the port
+//   (TF32 off), wgmma takes no full-f32 input, and U^T A is ~16 kFLOP per
+//   mission; the order of every sum is fixed for bitwise agreement.
+//
+//   Design: one warp per mission, a CTA of kEdgeWarps = 4 warps (B = 1024
+//   gives 256 CTAs for the 132 SMs).  Each warp first starts cp.async
+//   copies of its mission's S_raw (one group) and A block (a second group)
+//   into its own slice of dynamic shared memory, 16-byte copies where both
+//   ends are aligned, so A lands while the warp factors S.  The
+//   factorisations are spread across lanes, each sum in the order of the
+//   device functions above, so results stay bitwise:
+//     Cholesky, column by column: lane i keeps row i of L in registers; for
+//       column j every lane i >= j forms s(i,j) - sum_k L[i][k] L[j][k]
+//       (L[j][k] by shuffle from lane j), lane j's value gives the pivot;
+//     forward substitution: lane j owns column j of L^-1 and runs down it;
+//     the M(M+1)/2 entries of S^-1 are spread over the lanes;
+//     the second Cholesky works as the first.
+//   The dependent chain falls from ~M^3 to ~M^2 steps.  Then the lanes own
+//   columns n = lane, lane + 32, ...: each forms the M rows of WcT for its
+//   column from U (shared-memory broadcasts) and A (shared memory, one bank
+//   per lane), stores them coalesced along N, and sums its squares.  Gain:
+//   lane l adds the masked sq of columns l, l + 32, l + 64, ... in turn
+//   (zero past N), then an xor-shuffle tree over 16, 8, 4, 2, 1; the plain
+//   version spells out the same order.  No atomics.
+//
 // Numerics: the operations and their order are those of the plain PyTorch
 // versions (ops/smallchol.py), and the library is built with -fmad=false
 // (no multiply-add contraction) and IEEE division and square root, so on
@@ -73,10 +120,11 @@
 //
 // Interface: plain C, loaded with ctypes by ops/kernels.py; pointers and
 // the stream arrive as void*.  Each launcher returns 0, a cudaError_t from
-// cudaGetLastError() after the launch, or -1 for an unsupported M or
-// dtype (nothing launched).
+// cudaGetLastError() after the launch, or -1 for an unsupported M, dtype
+// or size (nothing launched).
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -84,6 +132,9 @@ namespace {
 constexpr int kMaxM = 12;
 constexpr int kInverseTile = 32;  // matrices, and threads, per CTA of spd_inverse
 constexpr int kTraceThreads = 128;
+constexpr int kEdgeWarps = 4;  // missions, and warps, per CTA of edge_factor_gain
+constexpr int kMaxSharedBytes = 232448;  // dynamic shared memory a CTA may use
+constexpr unsigned kFullMask = 0xffffffffu;
 
 template <typename T>
 __device__ __forceinline__ T clamp_pivot(T x) {
@@ -261,6 +312,209 @@ spd_trace_product_kernel(const T* __restrict__ s, const T* __restrict__ g,
   out[t] = total;
 }
 
+// ---------------------------------------------------------------- edge update
+
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+
+template <int Bytes>
+__device__ __forceinline__ void cp_async_small(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src), "n"(Bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most `Pending` of this thread's committed groups are in flight
+template <int Pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending));
+}
+
+// count elements from global src to shared dst by the warp's lanes, as
+// asynchronous copies: 16-byte copies where both ends are 16-byte aligned
+// and the length allows, else one element each
+template <typename T>
+__device__ __forceinline__ void warp_copy_async(T* dst, const T* src, int count, int lane) {
+  const int bytes = count * static_cast<int>(sizeof(T));
+  const uintptr_t ends = reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src);
+  if ((ends & 15) == 0 && bytes % 16 == 0) {
+    for (int k = lane; k < bytes / 16; k += 32) {
+      cp_async_16(reinterpret_cast<char*>(dst) + 16 * k,
+                  reinterpret_cast<const char*>(src) + 16 * k);
+    }
+  } else {
+    for (int k = lane; k < count; k += 32) cp_async_small<sizeof(T)>(dst + k, src + k);
+  }
+}
+
+// x rounded to bfloat16 (to nearest even) and back, as x.to(torch.bfloat16)
+// .to(x.dtype) does; a double goes through float first, as torch's does
+template <typename T>
+__device__ __forceinline__ T round_to_bf16(T x) {
+  return static_cast<T>(__bfloat162float(__float2bfloat16_rn(static_cast<float>(x))));
+}
+
+// elements of one warp's slice of shared memory: the A block (M * N), then
+// S_raw and two M x M scratch matrices, each slice a multiple of 16 bytes
+template <int M, typename T>
+__host__ __device__ constexpr int edge_a_elems(int n) {
+  return (M * n * static_cast<int>(sizeof(T)) + 15) / 16 * 16 / static_cast<int>(sizeof(T));
+}
+
+template <int M, typename T>
+__host__ __device__ constexpr int edge_warp_elems(int n) {
+  return edge_a_elems<M, T>(n) +
+         (3 * M * M * static_cast<int>(sizeof(T)) + 15) / 16 * 16 / static_cast<int>(sizeof(T));
+}
+
+// Cholesky across the warp: lane `row` (rows past M - 1 repeat row M - 1)
+// returns row `row` of L, zeros above the diagonal, for the SPD matrix whose
+// entry (i, j), i >= j, is s(i, j).  Each entry's sum runs over k in the
+// order of `cholesky`; every lane computes the pivot from lane j's sum.
+template <int M, typename T, typename Entry>
+__device__ __forceinline__ void warp_cholesky(const Entry& s, int row, T (&Lrow)[M]) {
+#pragma unroll
+  for (int j = 0; j < M; ++j) {
+    T acc = s(row, j);
+#pragma unroll
+    for (int k = 0; k < j; ++k) acc = acc - Lrow[k] * __shfl_sync(kFullMask, Lrow[k], j);
+    const T d = sqrt(clamp_pivot(__shfl_sync(kFullMask, acc, j)));
+    const T inv_d = T(1) / d;
+    Lrow[j] = row == j ? d : (row > j ? acc * inv_d : T(0));
+  }
+}
+
+template <int M, typename T>
+__global__ void __launch_bounds__(kEdgeWarps * 32)
+edge_factor_gain_kernel(const T* __restrict__ s_raw, const T* __restrict__ a_blk,
+                        const T* __restrict__ r_table, const int64_t* __restrict__ action,
+                        const T* __restrict__ mask, int64_t mask_stride,
+                        T* __restrict__ wct, T* __restrict__ gain, int64_t n_missions, int n,
+                        int round_bf16) {
+  extern __shared__ __align__(16) unsigned char edge_smem[];
+  const int warp = static_cast<int>(threadIdx.x) >> 5;
+  const int lane = static_cast<int>(threadIdx.x) & 31;
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * kEdgeWarps + warp;
+  if (b >= n_missions) return;  // whole warps only: nothing below syncs the CTA
+
+  T* A = reinterpret_cast<T*>(edge_smem) + warp * edge_warp_elems<M, T>(n);
+  T* S = A + edge_a_elems<M, T>(n);  // S_raw, row-major
+  T* X = S + M * M;                  // L, then S^-1 (lower triangle)
+  T* Y = X + M * M;                  // L^-1 (lower triangle), then U
+  warp_copy_async(S, s_raw + b * (M * M), M * M, lane);
+  cp_async_commit();
+  warp_copy_async(A, a_blk + b * M * n, M * n, lane);
+  cp_async_commit();
+
+  const int row = lane < M ? lane : M - 1;  // the row (or column) this lane owns
+  const int64_t act = __ldg(reinterpret_cast<const long long*>(action) + b);
+  const T r_row = __ldg(r_table + act * M + row);
+  cp_async_wait<1>();  // S_raw has landed; A may still be in flight
+  __syncwarp();
+
+  // L of S = 0.5 (S_raw + S_raw^T) + diag(R), lane `row` holding row `row`
+  T Lrow[M];
+  warp_cholesky<M>(
+      [&](int i, int j) {
+        return T(0.5) * (S[i * M + j] + S[j * M + i]) + (i == j ? r_row : T(0));
+      },
+      row, Lrow);
+  if (lane < M) {
+#pragma unroll
+    for (int k = 0; k < M; ++k) X[row * M + k] = Lrow[k];
+  }
+  __syncwarp();
+
+  // L^-1 by forward substitution, lane `row` running down column `row`
+  {
+    const int col = row;
+    const T diag = T(1) / X[col * M + col];
+    T Lic[M];
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      if (i == col) {
+        Lic[i] = diag;
+      } else if (i > col) {
+        T acc = X[i * M + col] * diag;
+#pragma unroll
+        for (int k = 1; k < i; ++k) {
+          if (k > col) acc = acc + X[i * M + k] * Lic[k];
+        }
+        Lic[i] = -acc / X[i * M + i];
+      } else {
+        Lic[i] = T(0);
+      }
+    }
+    if (lane < M) {
+#pragma unroll
+      for (int i = 0; i < M; ++i) {
+        if (i >= col) Y[i * M + col] = Lic[i];
+      }
+    }
+  }
+  __syncwarp();
+
+  // the lower triangle of S^-1 = L^-T L^-1 into X, entries spread over lanes
+  constexpr int kT = M * (M + 1) / 2;
+  for (int e = lane; e < kT; e += 32) {
+    int i = 0;
+#pragma unroll
+    for (int r = 1; r < M; ++r) {
+      if (e >= r * (r + 1) / 2) i = r;
+    }
+    const int j = e - i * (i + 1) / 2;
+    T acc = Y[i * M + i] * Y[i * M + j];
+#pragma unroll
+    for (int k = 1; k < M; ++k) {
+      if (k > i) acc = acc + Y[k * M + i] * Y[k * M + j];
+    }
+    X[i * M + j] = acc;
+  }
+  __syncwarp();
+
+  // U = chol(S^-1) into Y, zeros above the diagonal
+  T Urow[M];
+  warp_cholesky<M>([&](int i, int j) { return X[i * M + j]; }, row, Urow);
+  if (lane < M) {
+#pragma unroll
+    for (int k = 0; k < M; ++k) Y[row * M + k] = Urow[k];
+  }
+  cp_async_wait<0>();  // A has landed
+  __syncwarp();
+
+  // WcT = U^T A, the squares and this lane's share of the gain
+  T* out = wct + b * M * n;
+  const T* mrow = mask == nullptr ? nullptr : mask + b * mask_stride;
+  T g = T(0);
+  for (int c = 0, col = lane; col - lane < n; ++c, col += 32) {
+    T sq = T(0);
+    if (col < n) {
+      T a[M];
+#pragma unroll
+      for (int k = 0; k < M; ++k) a[k] = A[k * n + col];
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        T acc = Y[m] * a[0];  // U[0][m] A[0][col]
+#pragma unroll
+        for (int k = 1; k < M; ++k) acc = acc + Y[k * M + m] * a[k];
+        if (round_bf16) acc = round_to_bf16(acc);
+        out[m * n + col] = acc;
+        sq = m == 0 ? acc * acc : sq + acc * acc;
+      }
+      if (mrow != nullptr) sq = sq * __ldg(mrow + col);
+    }
+    g = c == 0 ? sq : g + sq;
+  }
+#pragma unroll
+  for (int w = 16; w >= 1; w >>= 1) g = g + __shfl_xor_sync(kFullMask, g, w);
+  if (lane == 0) gain[b] = g;
+}
+
 template <int M, typename T>
 void launch_inverse(const void* s, void* out, int64_t n, cudaStream_t stream) {
   const unsigned blocks = static_cast<unsigned>((n + kInverseTile - 1) / kInverseTile);
@@ -283,6 +537,29 @@ void launch_trace(const void* s, const void* g, void* out, int64_t outer, int64_
       static_cast<unsigned>((outer * inner + kTraceThreads - 1) / kTraceThreads);
   spd_trace_product_kernel<M, T><<<blocks, kTraceThreads, 0, stream>>>(
       static_cast<const T*>(s), static_cast<const T*>(g), static_cast<T*>(out), outer, inner);
+}
+
+// cudaSuccess, a cudaError_t, or -1 when the shared slices of N columns do
+// not fit a CTA (nothing launched)
+template <int M, typename T>
+int launch_edge(const void* s, const void* a_blk, const void* r, const void* action,
+                const void* mask, int64_t mask_stride, void* wct, void* gain, int64_t n_missions,
+                int n, int round_bf16, cudaStream_t stream) {
+  const int64_t bytes =
+      static_cast<int64_t>(kEdgeWarps) * edge_warp_elems<M, T>(n) * static_cast<int64_t>(sizeof(T));
+  if (bytes > kMaxSharedBytes) return -1;
+  auto kernel = edge_factor_gain_kernel<M, T>;
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const unsigned blocks = static_cast<unsigned>((n_missions + kEdgeWarps - 1) / kEdgeWarps);
+  kernel<<<blocks, kEdgeWarps * 32, static_cast<size_t>(bytes), stream>>>(
+      static_cast<const T*>(s), static_cast<const T*>(a_blk), static_cast<const T*>(r),
+      static_cast<const int64_t*>(action), static_cast<const T*>(mask), mask_stride,
+      static_cast<T*>(wct), static_cast<T*>(gain), n_missions, n, round_bf16);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // calls F::template run<M, T>() for the runtime M; false if M is unsupported
@@ -324,6 +601,16 @@ struct TraceLaunch {
   }
 };
 
+struct EdgeLaunch {
+  const void* s; const void* a_blk; const void* r; const void* action; const void* mask;
+  int64_t mask_stride; void* wct; void* gain; int64_t n_missions; int n; int round_bf16;
+  cudaStream_t stream; int* result;
+  template <int M, typename T> void run() const {
+    *result = launch_edge<M, T>(s, a_blk, r, action, mask, mask_stride, wct, gain, n_missions, n,
+                                round_bf16, stream);
+  }
+};
+
 // dtype codes: 0 = float32, 1 = float64
 template <typename F>
 int launch(int m, int dtype, F f) {
@@ -359,6 +646,25 @@ int smallchol_spd_trace_product(const void* s, const void* g, void* out, long lo
   if (outer <= 0 || inner <= 0) return 0;
   return launch(m, dtype,
                 TraceLaunch{s, g, out, outer, inner, static_cast<cudaStream_t>(stream)});
+}
+
+// s (n, M, M), a_blk (n, M, N), r (num_actions, M), action (n,) int64, mask
+// (N,) with mask_stride 0, (n, N) with mask_stride N, or nullptr; writes
+// wct (n, M, N) and gain (n,)
+int smallchol_edge_factor_gain(const void* s, const void* a_blk, const void* r,
+                               const void* action, const void* mask, long long mask_stride,
+                               void* wct, void* gain, long long n, int m, int n_cells,
+                               int round_bf16, int dtype, void* stream) {
+  if (n <= 0) return 0;
+  if (n_cells <= 0) return -1;
+  int result = -1;
+  const EdgeLaunch f{s, a_blk, r, action, mask, mask_stride, wct, gain, n, n_cells, round_bf16,
+                     static_cast<cudaStream_t>(stream), &result};
+  bool ok;
+  if (dtype == 0) ok = dispatch_m<float>(m, f);
+  else if (dtype == 1) ok = dispatch_m<double>(m, f);
+  else ok = false;
+  return ok ? result : -1;
 }
 
 const char* smallchol_error_string(int err) {

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ipp_rl_tpu_torch.config.schema import Config
+from ipp_rl_tpu_torch.device import resolve_device
 
 
 def grf_amplitude(ny: int, nx: int, cluster_radius: float) -> np.ndarray:
@@ -58,12 +59,13 @@ def gaussian_random_field(
     cfg: Config,
     batch_size: int,
     generator: Optional[torch.Generator] = None,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
 ) -> torch.Tensor:
     """(B, ny, nx) fresh GRF worlds with white noise drawn from ``generator``."""
     ny, nx = cfg.environment.y_dim, cfg.environment.x_dim
     white = torch.randn(
-        (batch_size, ny, nx), generator=generator, device=device, dtype=torch.float32
+        (batch_size, ny, nx), generator=generator, device=resolve_device(device),
+        dtype=torch.float32,
     )
     return gaussian_random_field_from_noise(cfg, white)
 
@@ -205,9 +207,10 @@ def generate_ground_truth(
     cfg: Config,
     batch_size: int,
     generator: Optional[torch.Generator] = None,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
 ) -> torch.Tensor:
     """(B, ny, nx) float32 worlds of the configured simulation type."""
+    device = resolve_device(device)
     sim = cfg.sensor.simulation_type
     if sim == "gaussian_random_field":
         return gaussian_random_field(cfg, batch_size, generator, device)

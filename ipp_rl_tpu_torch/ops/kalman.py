@@ -12,7 +12,8 @@ tr(S⁻¹·G) with G = H·Q·Hᵀ, Q = P·diag(m)·P.
 Every function broadcasts over leading batch axes (the mission axis is an
 explicit dimension; nothing is vmapped).  The (M, M) inverses go through
 ``ops/kernels.spd_inverse`` (``spd_inverse_factor`` where the Cholesky
-factor of the inverse follows, in the search's edge update) and the
+factor of the inverse follows; the search's edge update hands its whole
+small-matrix tail to ``edge_factor_gain``) and the
 sweep's per-action trace products
 through ``ops/kernels.spd_trace_product_packed``: hand-written CUDA on the
 card, the plain versions of ops/smallchol.py on the CPU.  The sweep builds
@@ -71,6 +72,28 @@ def kf_gain_factor_t(
         S = S + jitter * _eye_like(S)
     S_inv, U = kernels.spd_inverse_factor(S.contiguous())  # U lower, U·Uᵀ = S⁻¹
     return U.mT @ A, S_inv
+
+
+def kf_edge_factor_gain(
+    P: torch.Tensor,
+    H_table: torch.Tensor,
+    R_table: torch.Tensor,
+    a: torch.Tensor,
+    diag_mask: Optional[torch.Tensor] = None,
+    round_bf16: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The search's edge update for actions ``a`` (B,) int64 against the
+    running covariances P (B, N, N): (Wcᵀ (B, M, N), gain (B,)) with
+    Wc·Wcᵀ = P·Hᵀ·S⁻¹·H·P for H = H_table[a], and gain = Σ_n m_n·(Wc·Wcᵀ)_nn
+    for the mask (N,) or (B, N) (all ones if None).  ``round_bf16`` rounds
+    Wcᵀ to bfloat16 and back before the gain, as a tree that stores its
+    edges in bfloat16 does.  The two GEMMs are ``torch.matmul`` (the JAX
+    package leaves them to XLA); everything after them is one launch of
+    ``kernels.edge_factor_gain``."""
+    H = H_table[a]
+    A = H @ P  # (B, M, N) — P is symmetric for every caller
+    S_raw = A @ H.mT
+    return kernels.edge_factor_gain(S_raw, A, R_table, a, diag_mask, round_bf16)
 
 
 def kf_update(

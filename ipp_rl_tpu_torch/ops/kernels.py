@@ -1,7 +1,8 @@
 """Wrappers of the hand-written CUDA kernels in ``csrc/smallchol.cu``.
 
-``spd_inverse``, ``spd_inverse_factor`` and ``spd_trace_product_packed``
-take CPU tensors to their plain PyTorch versions (ops/smallchol.py) and
+``spd_inverse``, ``spd_inverse_factor``, ``spd_trace_product_packed`` and
+``edge_factor_gain`` take CPU tensors to their plain PyTorch versions
+(ops/smallchol.py) and
 CUDA tensors to the kernels,
 with no fallback: a CUDA tensor the kernel cannot take raises.  Each
 carries a plain integer ``launches`` that it increments where it launches
@@ -104,6 +105,8 @@ def _load() -> ctypes.CDLL:
     lib.smallchol_spd_inverse_factor.restype = i
     lib.smallchol_spd_trace_product.argtypes = [vp, vp, vp, ll, ll, i, i, vp]
     lib.smallchol_spd_trace_product.restype = i
+    lib.smallchol_edge_factor_gain.argtypes = [vp, vp, vp, vp, vp, ll, vp, vp, ll, i, i, i, i, vp]
+    lib.smallchol_edge_factor_gain.restype = i
     lib.smallchol_max_m.argtypes = []
     lib.smallchol_max_m.restype = i
     lib.smallchol_error_string.argtypes = [i]
@@ -216,7 +219,66 @@ def spd_trace_product_packed(S: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
 spd_trace_product_packed.launches = 0
 
 
+def edge_factor_gain(
+    S_raw: torch.Tensor,
+    A: torch.Tensor,
+    R_table: torch.Tensor,
+    a: torch.Tensor,
+    diag_mask: Optional[torch.Tensor] = None,
+    round_bf16: bool = False,
+) -> tuple:
+    """(Wcᵀ (B, M, N), gain (B,)) of the search's edge update from S_raw
+    (B, M, M), A (B, M, N), the R table (num_actions, M), the actions a
+    (B,) int64 and a mask (N,) or (B, N) or None
+    (ops/smallchol.edge_factor_gain): one launch."""
+    inputs = [S_raw, A, R_table, a] + ([] if diag_mask is None else [diag_mask])
+    if all(t.device.type == "cpu" for t in inputs):
+        return smallchol.edge_factor_gain(S_raw, A, R_table, a, diag_mask, round_bf16)
+    name = "edge_factor_gain"
+    if A.ndim != 3:
+        raise ValueError(f"{name}: expected A (B, M, N), got {tuple(A.shape)}")
+    B, M, N = A.shape
+    shapes_ok = (
+        S_raw.shape == (B, M, M) and R_table.ndim == 2 and R_table.shape[1] == M
+        and a.shape == (B,)
+        and (diag_mask is None or diag_mask.shape in ((N,), (B, N)))
+    )
+    if not shapes_ok:
+        raise ValueError(f"{name}: shapes do not fit A {tuple(A.shape)}")
+    for t in inputs:
+        if not t.is_cuda or t.device != A.device:
+            raise ValueError(f"{name}: all inputs must be CUDA tensors on one device")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+    if a.dtype != torch.int64:
+        raise TypeError(f"{name}: the actions must be int64, got {a.dtype}")
+    if any(t.dtype != A.dtype for t in inputs if t is not a):
+        raise TypeError(f"{name}: S_raw, A, R_table and the mask differ in dtype")
+    code = _DTYPE_CODES.get(A.dtype)
+    if code is None:
+        raise TypeError(f"{name}: float32 or float64 only, got {A.dtype}")
+    lib = _lib or _load()
+    _check_m(name, M)
+    WcT = torch.empty_like(A)
+    gain = torch.empty((B,), dtype=A.dtype, device=A.device)
+    if B:
+        mask_stride = 0 if diag_mask is None or diag_mask.ndim == 1 else N
+        err = lib.smallchol_edge_factor_gain(
+            S_raw.data_ptr(), A.data_ptr(), R_table.data_ptr(), a.data_ptr(),
+            None if diag_mask is None else diag_mask.data_ptr(), mask_stride,
+            WcT.data_ptr(), gain.data_ptr(), B, M, N, int(round_bf16), code,
+            torch.cuda.current_stream().cuda_stream,
+        )
+        _raise_on(name, err)
+        edge_factor_gain.launches += 1
+    return WcT, gain
+
+
+edge_factor_gain.launches = 0
+
+
 def reset_launch_counts() -> None:
     spd_inverse.launches = 0
     spd_inverse_factor.launches = 0
     spd_trace_product_packed.launches = 0
+    edge_factor_gain.launches = 0

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ipp_rl_tpu_torch.config.schema import Config
+from ipp_rl_tpu_torch.device import resolve_device
 
 
 def cell_center_distances(cfg: Config) -> np.ndarray:
@@ -60,7 +61,7 @@ def gp_prior_cov(
     cfg: Config,
     signal_variance: torch.Tensor | float | None = None,
     length_scale: torch.Tensor | float | None = None,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
     dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """(N, N) GP prior covariance over cell centres; with (B,)-shaped
@@ -68,7 +69,8 @@ def gp_prior_cov(
     m = cfg.mapping
     sv = m.signal_variance if signal_variance is None else signal_variance
     ls = m.length_scale if length_scale is None else length_scale
-    dists = torch.as_tensor(cell_center_distances(cfg), dtype=dtype, device=device)
+    dists = torch.as_tensor(cell_center_distances(cfg), dtype=dtype,
+                            device=resolve_device(device))
     if isinstance(sv, torch.Tensor) and sv.ndim:
         sv = sv[..., None, None]
     if isinstance(ls, torch.Tensor) and ls.ndim:
@@ -114,7 +116,7 @@ def init_belief(
     shuffle: bool = False,
     unit_draws: Optional[torch.Tensor] = None,
     normal: Optional[torch.Tensor] = None,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
     dtype: torch.dtype = torch.float32,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Prior (mean (N,), cov (N, N)): mean ≡ 0.5; covariance from the GP
@@ -123,6 +125,7 @@ def init_belief(
     ``unit_draws`` (..., 2); the random SPD prior needs ``normal``
     (..., N, N) and, shuffled, ``unit_draws`` (...)."""
     n = cfg.environment.num_cells
+    device = resolve_device(device)
     mean = torch.full((n,), 0.5, dtype=dtype, device=device)
     if cfg.mapping.fit_gaussian_process:
         if shuffle:

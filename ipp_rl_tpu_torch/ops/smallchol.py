@@ -7,7 +7,8 @@ batch-shaped tensors, exactly as in the JAX package.
 
 These are the reference implementations of the hand-written CUDA kernels
 in ``csrc/smallchol.cu`` (``spd_inverse``, ``spd_inverse_factor``,
-``spd_trace_product_packed``): ``ops/kernels.py`` calls them for CPU tensors,
+``spd_trace_product_packed``, ``edge_factor_gain``): ``ops/kernels.py``
+calls them for CPU tensors,
 and the tests and ``chip_smoke.py`` hold the kernels against them.  The
 kernels perform the same operations in the same order, one rounding per
 operation (built without FMA contraction), so on the card the two agree
@@ -22,6 +23,7 @@ whole-warp contiguous reads.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 #: pivots below this are clamped before the square root (as in the TPU
@@ -40,6 +42,16 @@ def packed_size(M: int) -> int:
     return M * (M + 1) // 2
 
 
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded square root, as the kernels' IEEE ``sqrt`` and
+    CUDA's ``torch.sqrt``.  torch's CPU kernel is not correctly rounded on
+    every host (one ulp off for ~1.3% of float64 inputs on an AVX-512 AMD
+    EPYC host, torch 2.13.0+cpu), numpy's is: CPU tensors go through it."""
+    if x.device.type == "cpu":
+        return torch.from_numpy(np.asarray(np.sqrt(x.numpy())))  # 0-d stays an array
+    return torch.sqrt(x)
+
+
 def _cholesky(s, M: int) -> list:
     """Unrolled Cholesky of the SPD matrix whose entry (i, j), i >= j, is
     the tensor s(i, j); L[i][j] for j <= i."""
@@ -48,7 +60,7 @@ def _cholesky(s, M: int) -> list:
         acc = s(j, j)
         for k in range(j):
             acc = acc - L[j][k] * L[j][k]
-        L[j][j] = torch.sqrt(torch.clamp(acc, min=PIVOT_FLOOR))
+        L[j][j] = _sqrt(torch.clamp(acc, min=PIVOT_FLOOR))
         inv_d = 1.0 / L[j][j]
         for i in range(j + 1, M):
             acc = s(i, j)
@@ -165,3 +177,73 @@ def spd_inverse_factor(S: torch.Tensor) -> tuple:
     other, so the kernel that fuses them stays bitwise equal to this."""
     S_inv = spd_inverse(S)
     return S_inv, spd_cholesky_dense(S_inv)
+
+
+#: lanes of the warp whose summation order :func:`warp_order_sum` spells out
+WARP = 32
+
+
+def warp_order_sum(x: torch.Tensor) -> torch.Tensor:
+    """Σ over the last axis (length N) in the order of one warp: lane l
+    adds x[l], x[l + 32], x[l + 64], … in turn (zeros past N), then the
+    lanes' sums are halved pairwise, 16, 8, 4, 2, 1 apart (the kernel's
+    xor-shuffle tree: a + b equals b + a bit for bit)."""
+    N = x.shape[-1]
+    chunks = -(-N // WARP)
+    v = torch.nn.functional.pad(x, (0, chunks * WARP - N)).unflatten(-1, (chunks, WARP))
+    acc = v[..., 0, :]
+    for c in range(1, chunks):
+        acc = acc + v[..., c, :]
+    w = WARP // 2
+    while w:
+        acc = acc[..., :w] + acc[..., w:2 * w]
+        w //= 2
+    return acc[..., 0]
+
+
+def edge_factor_gain(
+    S_raw: torch.Tensor,
+    A: torch.Tensor,
+    R_table: torch.Tensor,
+    a: torch.Tensor,
+    diag_mask: torch.Tensor | None = None,
+    round_bf16: bool = False,
+) -> tuple:
+    """The small-matrix tail of the search's edge update, per mission b:
+    (Wcᵀ (B, M, N), gain (B,)) from S_raw = A·Hᵀ (B, M, M), A = H·P
+    (B, M, N), the world's R table (num_actions, M), the actions a (B,)
+    and a mask (N,) or (B, N) or None:
+
+      S    = 0.5·(S_raw + S_rawᵀ) + diag(R[a])
+      U    = chol(S⁻¹)                       (spd_inverse_factor's algebra)
+      Wcᵀ  = Uᵀ·A in the JAX package's ``_small_mm`` order: row m is
+             U[0,m]·A[0], then + U[k,m]·A[k] for k = 1..M−1, zero terms kept
+      Wcᵀ  = Wcᵀ rounded to bfloat16 and back, if ``round_bf16``
+      sq_n = Σ_m Wcᵀ[m,n]², m in order, × mask
+      gain = warp_order_sum(sq)
+
+    (ipp_rl_tpu/planners/zero/mcts.py:187-207 with ipp_rl_tpu/ops/kalman.py:88-126.)
+    Every sum is written out in the order the kernel ``edge_factor_gain``
+    of csrc/smallchol.cu takes, so the two agree to the last bit."""
+    M = A.shape[-2]
+    S = 0.5 * (S_raw + S_raw.mT) + torch.diag_embed(R_table[a])
+    Li = _invert_lower(cholesky_ll(S), M)
+    U = _cholesky(lambda i, j: _inverse_entry(Li, M, i, j), M)
+    zero = torch.zeros_like(U[0][0])
+    rows = []
+    for m in range(M):
+        acc = None
+        for k in range(M):
+            t = (U[k][m] if k >= m else zero)[..., None] * A[..., k, :]
+            acc = t if acc is None else acc + t
+        rows.append(acc)
+    WcT = torch.stack(rows, dim=-2)
+    if round_bf16:
+        WcT = WcT.to(torch.bfloat16).to(A.dtype)
+    sq = None
+    for m in range(M):
+        t = WcT[..., m, :] * WcT[..., m, :]
+        sq = t if sq is None else sq + t
+    if diag_mask is not None:
+        sq = sq * diag_mask
+    return WcT, warp_order_sum(sq)

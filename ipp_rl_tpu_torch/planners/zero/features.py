@@ -25,6 +25,7 @@ from typing import Optional
 import torch
 
 from ipp_rl_tpu_torch.config.schema import Config, MCTSZeroHyperParams
+from ipp_rl_tpu_torch.device import resolve_device
 from ipp_rl_tpu_torch.ops.geometry import travel_costs
 from ipp_rl_tpu_torch.ops.rewards import adaptive_mask
 
@@ -51,9 +52,10 @@ def init_history(
     hp: MCTSZeroHyperParams,
     batch_size: int,
     dtype: torch.dtype = torch.float32,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
 ) -> EpisodeHistory:
     L, n, B = hp.input_history_length, cfg.environment.num_cells, batch_size
+    device = resolve_device(device)
     return EpisodeHistory(
         covs=torch.zeros((B, L, n, n), dtype=dtype, device=device),
         positions=torch.zeros((B, L, 3), dtype=dtype, device=device),

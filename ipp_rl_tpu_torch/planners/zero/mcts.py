@@ -11,8 +11,9 @@ mission axis B explicitly and the loops are Python loops:
   * covariances are never stored per node: each edge stores its rank-M
     whitened gain factor Wcᵀ (P_child = P_parent − Wc·Wcᵀ), and the
     descent rebuilds the running covariance;
-  * the edge update inverts each innovation and factors the inverse in
-    one hand-written kernel (ops/kernels.spd_inverse_factor);
+  * the edge update runs two GEMMs and then one hand-written kernel
+    (ops/kernels.edge_factor_gain) from the innovation to the edge
+    factor and its gain;
   * all missions' leaves go through one batched network forward per
     simulation;
   * KataGo's min-max-normalised Q in PUCT, forced playouts √(k·P·N) at
@@ -41,7 +42,7 @@ import torch
 
 from ipp_rl_tpu_torch.config.schema import MCTSZeroHyperParams
 from ipp_rl_tpu_torch.ops.geometry import travel_costs
-from ipp_rl_tpu_torch.ops.kalman import kf_gain_factor_t
+from ipp_rl_tpu_torch.ops.kalman import kf_edge_factor_gain
 from ipp_rl_tpu_torch.ops.rewards import adaptive_mask
 from ipp_rl_tpu_torch.planners.zero.features import EpisodeHistory, feature_planes, push_history
 from ipp_rl_tpu_torch.planners.zero.train import cast_variables
@@ -224,14 +225,13 @@ class ZeroMCTS:
         """Covariance-only KF update for actions ``a`` (B,) against the
         running covariances P (B, N, N): returns (Wcᵀ (B, M, N), gain (B,))
         — one simulate_prediction_step per mission (reference
-        planning/common/optimization.py:14-30)."""
-        WcT, _ = kf_gain_factor_t(P, self.world.H[a], self.world.R_diag[a])
-        if self.edge_dtype is not None and self.edge_dtype != P.dtype:
-            WcT = WcT.to(self.edge_dtype).to(P.dtype)
-        sq = torch.sum(WcT * WcT, dim=-2)  # (B, N)
-        if diag_mask is not None:
-            sq = sq * diag_mask
-        return WcT, torch.sum(sq, dim=-1)
+        planning/common/optimization.py:14-30).  Edges stored in bfloat16
+        are rounded before the gain; other edge dtypes are refused."""
+        edge_dt = self.edge_dtype
+        if edge_dt not in (None, P.dtype, torch.bfloat16):
+            raise ValueError(f"edge_dtype must be None, bfloat16 or {P.dtype}, got {edge_dt}")
+        return kf_edge_factor_gain(P, self.world.H, self.world.R_diag, a, diag_mask,
+                                   round_bf16=edge_dt is not None and edge_dt != P.dtype)
 
     def flight_cost(self, prev_pos: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
         """Flight time from arbitrary positions to actions ``a`` (the budget

@@ -103,7 +103,7 @@ def _evolved_beliefs(cfg, jworld, B, seed):
     rng = np.random.default_rng(seed)
     H = jnp.asarray(jworld.table.H)
     R = jnp.asarray(jworld.table.R_diag)
-    P = jnp.asarray(gp_prior_cov(cfg, dtype=torch.float64).numpy())
+    P = jnp.asarray(gp_prior_cov(cfg, device="cpu", dtype=torch.float64).numpy())
     n = P.shape[0]
     Ps = []
     for _ in range(B):
@@ -157,7 +157,7 @@ def test_fast_math_decision_agreement(canonical_cfg):
     holds the JAX package), for the dense oracle and the batched sweep."""
     world = IPPWorld(canonical_cfg, dtype=torch.float32, device="cpu")
     H, R = world.H, world.R_diag
-    P = gp_prior_cov(canonical_cfg, dtype=torch.float32)
+    P = gp_prior_cov(canonical_cfg, device="cpu", dtype=torch.float32)
     rng = np.random.default_rng(0)
     agree, trials, Ps = 0, 20, []
     for t in range(trials):

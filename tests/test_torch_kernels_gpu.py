@@ -7,6 +7,9 @@ sweep calls, in both sweep layouts and against the full-block plain
 version.  ``spd_inverse_factor`` (the search's edge update) returns the
 inverse and its Cholesky factor; where a clamped pivot makes the factor
 overflow, its inf and NaN entries must sit where the plain version's do.
+``edge_factor_gain`` (the search's whole edge update after its two GEMMs)
+is held to the same on clamped pivots, in both dtypes, with the bf16
+round trip, for every column chunk and every mission of a batch.
 
 These tests need an NVIDIA Hopper card and the CUDA toolkit; elsewhere
 they skip.  They import no JAX, so they run where JAX is not installed:
@@ -155,6 +158,96 @@ def test_inverse_factor_tiles_cover_every_matrix(cuda, B, dtype):
     assert torch.equal(got_inv, want_inv) and torch.equal(got_U, want_U)
 
 
+def edge_inputs(B, M, N, dtype, seed, clamp=False):
+    """S_raw (B, M, M) and A (B, M, N) as one descent step builds them
+    (A = H·P, S_raw = A·Hᵀ, one SPD P), an R table of 7 actions, actions (B,)
+    and a 0/1 mask (B, N); with ``clamp``, mission 1's S goes indefinite."""
+    gen = torch.Generator().manual_seed(seed)
+    X = torch.randn((N, N), generator=gen, dtype=torch.float64)
+    P = X @ X.T / N + 0.1 * torch.eye(N, dtype=torch.float64)
+    H = torch.randn((B, M, N), generator=gen, dtype=torch.float64) / N ** 0.5
+    A = H @ P
+    S_raw = A @ H.mT
+    if clamp and B > 1:
+        S_raw[1, -1, -1] -= 4.0 * S_raw[1].diagonal().sum() + 10.0
+    R = torch.rand((7, M), generator=gen, dtype=torch.float64) + 0.5
+    a = torch.randint(0, 7, (B,), generator=gen)
+    mask = (torch.rand((B, N), generator=gen) > 0.4).to(torch.float64)
+    return [t.to(dtype) for t in (S_raw, A, R)] + [a, mask.to(dtype)]
+
+
+EDGE_DTYPES = [(torch.float32, False), (torch.float32, True), (torch.float64, False)]
+EDGE_IDS = ["float32", "float32-bf16", "float64"]
+
+
+@pytest.mark.parametrize("use_mask", [False, True], ids=["nomask", "mask"])
+@pytest.mark.parametrize("dtype,round_bf16", EDGE_DTYPES, ids=EDGE_IDS)
+@pytest.mark.parametrize("M", list(range(1, 13)))
+def test_edge_factor_gain_kernel_is_bitwise_plain(cuda, M, dtype, round_bf16, use_mask):
+    """N = 100 (four column chunks, the last ragged), one clamped pivot:
+    its overflowing factor must put inf and NaN where the plain version
+    does."""
+    S_raw, A, R, a, mask = (t.to(cuda) for t in edge_inputs(67, M, 100, dtype, seed=M,
+                                                             clamp=True))
+    mask = mask if use_mask else None
+    got = kernels.edge_factor_gain(S_raw, A, R, a, mask, round_bf16)
+    torch.cuda.synchronize()
+    want = smallchol.edge_factor_gain(S_raw, A, R, a, mask, round_bf16)
+    assert same(got[0], want[0]) and same(got[1], want[1])
+    keep = torch.arange(67, device=cuda) != 1
+    assert bool(torch.isfinite(got[0][keep]).all()) and bool(torch.isfinite(got[1][keep]).all())
+    assert not bool((got[0][1].abs() < 1e10).all())  # the clamped mission's factor is huge
+
+
+@pytest.mark.parametrize("N", [1, 31, 33, 100])
+def test_edge_factor_gain_column_chunks(cuda, N):
+    """Fewer columns than lanes, one past a chunk, and a shared (N,) mask."""
+    S_raw, A, R, a, mask = (t.to(cuda) for t in edge_inputs(40, 9, N, torch.float32, seed=N))
+    for m in (None, mask[0].contiguous(), mask):
+        got = kernels.edge_factor_gain(S_raw, A, R, a, m)
+        want = smallchol.edge_factor_gain(S_raw, A, R, a, m)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B", [1, 31, 1024, 1025, 4097])
+def test_edge_factor_gain_covers_every_mission(cuda, B, dtype):
+    """Both outputs are first filled with NaN and handed to the kernel
+    directly, so a mission that no warp wrote shows."""
+    S_raw, A, R, a, mask = (t.to(cuda) for t in edge_inputs(B, 9, 100, dtype, seed=B))
+    kernels.edge_factor_gain(S_raw[:1], A[:1], R, a[:1])  # builds and loads the library
+    WcT = torch.full_like(A, float("nan"))
+    gain = torch.full((B,), float("nan"), dtype=dtype, device=cuda)
+    err = kernels._lib.smallchol_edge_factor_gain(
+        S_raw.data_ptr(), A.data_ptr(), R.data_ptr(), a.data_ptr(), mask.data_ptr(), 100,
+        WcT.data_ptr(), gain.data_ptr(), B, 9, 100, 0, kernels._DTYPE_CODES[dtype],
+        torch.cuda.current_stream().cuda_stream,
+    )
+    torch.cuda.synchronize()
+    assert err == 0
+    want = smallchol.edge_factor_gain(S_raw, A, R, a, mask)
+    assert bool(torch.isfinite(WcT).all()) and bool(torch.isfinite(gain).all())
+    assert torch.equal(WcT, want[0]) and torch.equal(gain, want[1])
+    got = kernels.edge_factor_gain(S_raw, A, R, a, mask)  # and through the wrapper
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_edge_factor_gain_is_the_edge_update(cuda):
+    """kf_edge_factor_gain on the card equals kf_gain_factor_t's factor and
+    the squared norm of its columns, to float64 rounding."""
+    from ipp_rl_tpu_torch.ops import kalman
+
+    S_raw, A, R, a, mask = (t.to(cuda) for t in edge_inputs(16, 9, 100, torch.float64, seed=5))
+    gen = torch.Generator().manual_seed(6)
+    X = torch.randn((16, 100, 100), generator=gen, dtype=torch.float64).to(cuda)
+    P = X @ X.mT / 100 + 0.1 * torch.eye(100, dtype=torch.float64, device=cuda)
+    H_table = torch.randn((7, 9, 100), generator=gen, dtype=torch.float64).to(cuda) / 10
+    WcT, gain = kalman.kf_edge_factor_gain(P, H_table, R, a, mask)
+    want, _ = kalman.kf_gain_factor_t(P, H_table[a], R[a])
+    torch.testing.assert_close(WcT, want, rtol=1e-10, atol=1e-12)
+    torch.testing.assert_close(gain, ((want * want).sum(-2) * mask).sum(-1), rtol=1e-10, atol=0)
+
+
 def test_launch_counts_and_empty_batch(cuda):
     S = random_spd(4, 9, torch.float32, seed=2).to(cuda)
     n_inv, n_tr = kernels.spd_inverse.launches, kernels.spd_trace_product_packed.launches
@@ -169,9 +262,16 @@ def test_launch_counts_and_empty_batch(cuda):
     inv, U = kernels.spd_inverse_factor(S[:0])
     assert inv.shape == U.shape == (0, 9, 9)
     assert kernels.spd_inverse_factor.launches == n_fac + 1
+    S_raw, A, R, a, mask = (t.to(cuda) for t in edge_inputs(4, 9, 100, torch.float32, seed=2))
+    n_edge = kernels.edge_factor_gain.launches
+    kernels.edge_factor_gain(S_raw, A, R, a, mask)
+    WcT, gain = kernels.edge_factor_gain(S_raw[:0], A[:0], R, a[:0], mask[:0])
+    assert WcT.shape == (0, 9, 100) and gain.shape == (0,)
+    assert kernels.edge_factor_gain.launches == n_edge + 1
     kernels.reset_launch_counts()
     assert (kernels.spd_inverse.launches, kernels.spd_inverse_factor.launches,
-            kernels.spd_trace_product_packed.launches) == (0, 0, 0)
+            kernels.spd_trace_product_packed.launches, kernels.edge_factor_gain.launches) == (
+        0, 0, 0, 0)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -197,6 +297,28 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         kernels.spd_trace_product_packed(Sp[:, :44], Sp[:, :44])  # 44 entries: no triangle
     with pytest.raises(ValueError):
         kernels.spd_trace_product_packed(Sp[0], Sp[0])  # not (outer, T, inner)
+    S_raw, A, R, a, mask = (t.to(cuda) for t in edge_inputs(4, 9, 100, torch.float32, seed=3))
+    with pytest.raises(ValueError):
+        kernels.edge_factor_gain(S_raw.mT, A, R, a, mask)  # not contiguous
+    with pytest.raises(ValueError):
+        kernels.edge_factor_gain(S_raw, A, R, a, mask.T.contiguous().T)  # not contiguous
+    with pytest.raises(TypeError):
+        kernels.edge_factor_gain(S_raw.half(), A.half(), R.half(), a, mask.half())
+    with pytest.raises(TypeError):
+        kernels.edge_factor_gain(S_raw, A, R, a.int(), mask)
+    with pytest.raises(ValueError):
+        kernels.edge_factor_gain(S_raw, A, R, a.cpu(), mask)
+    S13, A13, R13, a13, _ = (t.to(cuda) for t in edge_inputs(2, 13, 20, torch.float32, seed=4))
+    with pytest.raises(ValueError):
+        kernels.edge_factor_gain(S13, A13, R13, a13)  # M = 13
+    cfg = load_config(str(CONFIG_DIR / "example.yaml"))
+    from ipp_rl_tpu_torch.planners.zero.mcts import ZeroMCTS
+
+    world = IPPWorld(cfg)
+    mcts = ZeroMCTS(world, cfg.missions[0].hyper_params, 5, None, edge_dtype=torch.float16)
+    P = torch.eye(cfg.environment.num_cells, device=cuda)[None]
+    with pytest.raises(ValueError):  # an edge dtype the kernel does not round to
+        mcts.edge_update(P, torch.zeros((1,), dtype=torch.long, device=cuda), None)
 
 
 def test_greedy_slice_on_card_matches_cpu(cuda):

@@ -110,7 +110,7 @@ def test_action_table_and_sweep_plan_equal(which, small_cfg, canonical_cfg):
 def test_gp_priors_match(canonical_cfg):
     cfg = port_cfg(canonical_cfg)
     want = np.asarray(jpriors.gp_prior_cov(canonical_cfg))
-    got = priors.gp_prior_cov(cfg, dtype=torch.float64).numpy()
+    got = priors.gp_prior_cov(cfg, device="cpu", dtype=torch.float64).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-12)
     d = torch.from_numpy(priors.cell_center_distances(cfg))
     for nu in (0.5, 2.5):
@@ -206,7 +206,7 @@ def test_hotspot_and_split_fields_match_given_the_same_draws(canonical_cfg):
 )
 def test_generated_worlds(sim, canonical_cfg):
     cfg = port_cfg(_with_sensor(canonical_cfg, simulation_type=sim, cluster_radius=2))
-    gt = fields.generate_ground_truth(cfg, 16, torch.Generator().manual_seed(0))
+    gt = fields.generate_ground_truth(cfg, 16, torch.Generator().manual_seed(0), device="cpu")
     assert gt.shape == (16, 10, 10) and gt.dtype == torch.float32
     assert float(gt.min()) >= 0.0 and float(gt.max()) <= 1.0
     assert not torch.equal(gt[0], gt[1])
@@ -221,7 +221,7 @@ def test_temperature_field_matches(monkeypatch):
     want = jfields.temperature_data_field(jcfg, datasets_dir=datasets)
     np.testing.assert_allclose(fields.temperature_data_field(cfg, datasets), want, rtol=1e-12)
     monkeypatch.setenv("DATASETS_DIR", datasets)
-    gt = fields.generate_ground_truth(cfg, 3)
+    gt = fields.generate_ground_truth(cfg, 3, device="cpu")
     np.testing.assert_allclose(gt[2].numpy(), want, rtol=1e-6)
 
 

@@ -38,7 +38,7 @@ def histories(cfg, seed):
     jhp = JaxHP(input_history_length=L)
     jh = jax.vmap(lambda _: jf.init_history(cfg, jhp, jnp.float64))(jnp.arange(B))
     h = features.init_history(cfg, MCTSZeroHyperParams(input_history_length=L), B,
-                              torch.float64)
+                              torch.float64, device="cpu")
     for k in range(2):
         jh = jax.vmap(jf.push_history)(jh, jnp.asarray(covs[k]), jnp.asarray(pos[k]),
                                        jnp.asarray(budgets[k]))

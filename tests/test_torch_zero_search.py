@@ -123,7 +123,7 @@ def env(small_cfg):
 
 
 def port_history(world, hp):
-    return features.init_history(world.cfg, hp, B, F64)
+    return features.init_history(world.cfg, hp, B, F64, device="cpu")
 
 
 def run_searches(env, use_net, clean, key=7):
@@ -225,8 +225,8 @@ def test_bf16_inference_and_edges_agree_with_f32(env, small_cfg):
     hp = MCTSZeroHyperParams(**NARROW)
     net = train.init_network(world.cfg, hp, torch.Generator().manual_seed(3), device="cpu")
     state = world.init_state(B, torch.Generator().manual_seed(4))
-    hist = features.push_history(features.init_history(world.cfg, hp, B), state.cov, state.pos,
-                                 state.budget / 60.0)
+    hist = features.push_history(features.init_history(world.cfg, hp, B, device="cpu"),
+                                 state.cov, state.pos, state.budget / 60.0)
     planes = features.feature_planes(world, hp, hist, state.mean)
     mask = torch.ones((B, world.num_actions))
     p32, v32 = train.predict_fn(net)(net.state_dict(), planes, mask)
@@ -235,7 +235,7 @@ def test_bf16_inference_and_edges_agree_with_f32(env, small_cfg):
     np.testing.assert_allclose(p16.numpy(), p32.numpy(), atol=0.03)
     np.testing.assert_allclose(v16.numpy(), v32.numpy(), rtol=0.08, atol=0.05)
 
-    empty = features.init_history(world.cfg, hp, B)
+    empty = features.init_history(world.cfg, hp, B, device="cpu")
     for pred, edge_dtype in ((train.predict_fn(net, dtype=torch.bfloat16), None),
                              (train.predict_fn(net), torch.bfloat16)):
         mcts = ZeroMCTS(world, hp, 2, pred, edge_dtype=edge_dtype)
