@@ -32,7 +32,10 @@ Phases, each of which fails the run on a failed check (none is caught):
    descent step of phase 5 (beliefs after three commits, canonical actions,
    the adaptive mask) at B = 1024 and 1025 and on clamped pivots, NaN
    matched to NaN, with the parent's tail (the eager operations around
-   ``spd_inverse_factor``) timed beside it;
+   ``spd_inverse_factor``) timed beside it; at the training path's batches,
+   ``edge_factor_gain`` at B = ``TRAIN_ENVS`` (self-play) and
+   ``ARENA_GAMES`` (arena) and ``spd_inverse`` on a commit's S at B =
+   ``TRAIN_ENVS``;
 3. the greedy slice through its entry points: canonical
    ``ipp_rl_tpu_torch/config/example.yaml``, ``IPPWorld(cfg, fast_sweeps=True)``,
    ``GreedyPlanner.run`` with B = 4096 for 10 replan steps, with the launch
@@ -44,7 +47,7 @@ Phases, each of which fails the run on a failed check (none is caught):
    width: mission 0 of example.yaml (128 channels, 10 encoder blocks, 3 + 3
    head blocks, 16 planes on 100×100, 200 actions, 100 simulations,
    horizon 5, float32), seeded random weights from ``init_network``,
-   ``ZeroPlanner.run`` in "reference" deploy mode at B = 1024 for 3 replan
+   ``ZeroPlanner.run`` in "reference" deploy mode at B = 1024 for 2 replan
    steps with the launch counters set to 0 just before and read just
    after; the root's visit total must be simulations − 1 for every mission
    at every replan, ``edge_factor_gain`` must launch once per descent step
@@ -53,10 +56,36 @@ Phases, each of which fails the run on a failed check (none is caught):
    (with the edge updates), leaf planes, network forward, and integrate +
    backup;
 6. the committed 64-channel / 6-block checkpoint, read by the port's own
-   reader, in "clean" deploy mode at B = 256 for 3 steps, with the kernels
+   reader, in "clean" deploy mode at B = 256 for 2 steps, with the kernels
    and with their plain versions from the same state, noise and generator
    seed, under ``torch.use_deterministic_algorithms``: actions and root
-   visit counts identical, metric curves within ``METRIC_RTOL``.
+   visit counts identical, metric curves within ``METRIC_RTOL``;
+7. MCTS-zero training through its entry point at the canonical width:
+   mission 0 of example.yaml (128 channels, 10 encoder blocks, 100
+   simulations, horizon 5, batch 96, 3 epochs, uniform replay, continuous
+   update, dropout 0, float32) with seeded weights, cut to
+   ``TRAIN_ENVS`` = 128 self-play environments, ``TRAIN_EPISODE_STEPS`` = 8
+   steps per episode and ``TRAIN_ITERATIONS`` = 2 iterations of
+   ``ZeroLearner.learn``, the launch counters set to 0 just before and read
+   just after; then one ``arena_gate`` of ``ARENA_GAMES`` = 16 games of
+   ``ARENA_STEPS`` = 4 steps.  Checks: ``spd_inverse`` and
+   ``edge_factor_gain`` launch, ``edge_factor_gain`` once per descent step,
+   self-play step and arena step (``spd_inverse_factor`` never); every
+   running self-play root's visit total is simulations − 1; samples exist
+   and value targets are finite and ≥ 0; losses and gradient norms are
+   finite; parameters and BatchNorm running statistics moved; the
+   deployment checkpoint reads back bitwise; ``LOSS_STEPS`` steps at
+   ``LOSS_LR`` on one fixed batch bring the loss's excess over the target
+   policies' entropy below ``LOSS_RATIO`` of the first step's.  Times:
+   self-play (``SelfPlay.run`` alone) per step and per mission-step, the
+   learner's own I/O around it (copy to the host, replay, npz), the train step
+   (CUDA events; samples/s; forward + backward TFLOP/s counted as 3× the
+   forward's hooked FLOPs), the arena per game step, each part's peak
+   memory.  Then the committed checkpoint's self-play (E =
+   ``TRAIN_AGREE_ENVS``, ``TRAIN_AGREE_STEPS`` steps, ``TRAIN_AGREE_SIMS``
+   simulations) and one arena batch, with the kernels and with their plain
+   versions from the same generator seeds, under deterministic
+   algorithms: trajectories and arena totals identical.
 
 Float32 products run in full float32: TF32 is switched off for matmuls
 and cuDNN.  The last stdout line is ``{"ok": true, "device": {...}}``;
@@ -73,6 +102,7 @@ import os
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -85,9 +115,18 @@ from ipp_rl_tpu_torch.ops.rewards import adaptive_mask
 from ipp_rl_tpu_torch.models.networks import plane_channels
 from ipp_rl_tpu_torch.planners import GreedyPlanner
 from ipp_rl_tpu_torch.planners.zero import ZeroPlanner
+from ipp_rl_tpu_torch.planners.zero.arena import Arena
 from ipp_rl_tpu_torch.planners.zero.features import init_history, push_history
-from ipp_rl_tpu_torch.planners.zero.learn import load_checkpoint
-from ipp_rl_tpu_torch.planners.zero.train import inference_dtype, init_network, predict_fn
+from ipp_rl_tpu_torch.planners.zero.learn import ZeroLearner, checkpoint_variables, load_checkpoint
+from ipp_rl_tpu_torch.planners.zero.mcts import ZeroMCTS
+from ipp_rl_tpu_torch.planners.zero.selfplay import SelfPlay
+from ipp_rl_tpu_torch.planners.zero.train import (
+    inference_dtype,
+    init_network,
+    predict_fn,
+    reset_optimizer,
+)
+from ipp_rl_tpu_torch.serialization import read_checkpoint
 
 ROOT = pathlib.Path(__file__).resolve().parent
 # published H100 SXM peaks (NVIDIA data sheet), at the full 700 W limit
@@ -98,8 +137,20 @@ T = M * (M + 1) // 2  # entries of a packed lower triangle
 ACTIONS_PER_GROUP = 100  # each of the canonical config's two sweep groups
 REPLAN_B, REPLAN_STEPS = 4096, 10
 AGREE_B, AGREE_STEPS = 512, 4
-ZERO_B, ZERO_STEPS = 1024, 3
-ZERO_AGREE_B, ZERO_AGREE_STEPS = 256, 3
+ZERO_B, ZERO_STEPS = 1024, 2
+ZERO_AGREE_B, ZERO_AGREE_STEPS = 256, 2
+# phase 7: the training slice's scale cuts (canonical: 22 x 13 = 286
+# environments, 40-step episodes, 40 iterations) and its arena gate
+TRAIN_ENVS, TRAIN_EPISODE_STEPS, TRAIN_ITERATIONS = 128, 8, 2
+ARENA_GAMES, ARENA_STEPS = 16, 4
+# N steps at a fixed LR (the recipe's peak) on one fixed batch of the
+# phase's data must bring its loss's excess over the policy targets'
+# entropy (the cross-entropy's floor) below this share of the first step's.
+# Self-play on the card is not bitwise repeatable, so the batch differs
+# from run to run; the loss falls in steps after plateaus, so after 100
+# steps the share spread over 0.40-0.86 in four runs, and 200 are taken
+LOSS_STEPS, LOSS_LR, LOSS_RATIO = 200, 5e-3, 0.8
+TRAIN_AGREE_ENVS, TRAIN_AGREE_STEPS, TRAIN_AGREE_SIMS = 32, 4, 32
 CHECKPOINT = ROOT / "runs" / "zero_canon_r5_best" / "checkpoints" / "shared_net.trained_model.ckpt"
 # the committed checkpoint's hyper-parameters (tests/test_learning_artifact.py)
 CHECKPOINT_HP = dict(num_channels=64, num_encoder_res_blocks=6, num_global_pooling_channels=32,
@@ -474,6 +525,21 @@ def edge_factor_gain_row(gen: torch.Generator) -> dict:
     for got, want, part in zip(kernels.edge_factor_gain(*bad),
                                smallchol.edge_factor_gain(*bad), ("WcT", "gain")):
         compare_with_nan(f"edge_factor_gain indefinite (clamped pivot, {part})", got, want)
+    # the training path's batches: self-play's E environments (descent,
+    # reward, and the commit's S = sym(H P Hᵀ + R) for spd_inverse, as
+    # ops/kalman.kf_update builds it) and the arena's G games (descent and
+    # edge update)
+    for b, commit in ((TRAIN_ENVS, True), (ARENA_GAMES, False)):
+        inputs = descent_step_inputs(world, b, gen)
+        for got, want, part in zip(kernels.edge_factor_gain(*inputs),
+                                   smallchol.edge_factor_gain(*inputs), ("WcT", "gain")):
+            compare(f"edge_factor_gain B={b} ({part})", got, want)
+        if commit:
+            S_raw_b, _, R_b, a_b, _ = inputs
+            S_b = S_raw_b + torch.diag_embed(R_b[a_b])
+            S_b = (0.5 * (S_b + S_b.mT)).contiguous()
+            compare(f"spd_inverse B={b} (a commit's S)", kernels.spd_inverse(S_b),
+                    smallchol.spd_inverse(S_b))
     t = times(lambda: kernels.edge_factor_gain(*args), graph_launches=200, calls=200)
     # what bounds it: one CTA (4 missions: one warp's chain and a launch),
     # and the whole batch with one column (the factorisations without Uᵀ·A)
@@ -628,17 +694,26 @@ class RootVisits:
         planner.mcts.search = recorded
 
 
-def count_calls(obj, attr: str) -> list:
-    """Counts the calls of obj.attr in a one-element list (the wrapper is
-    set on the instance; deleting it restores the method)."""
-    fn, calls = getattr(obj, attr), [0]
+@contextlib.contextmanager
+def count_calls(owner, attr: str):
+    """Counts the calls of ``owner.attr`` in a one-element list while the
+    block runs: an instance's method, or a class's (then every instance's,
+    those made inside the block too)."""
+    own = vars(owner).get(attr)
+    fn, calls = getattr(owner, attr), [0]
 
     def counted(*args, **kw):
         calls[0] += 1
         return fn(*args, **kw)
 
-    setattr(obj, attr, counted)
-    return calls
+    setattr(owner, attr, counted)
+    try:
+        yield calls
+    finally:
+        if own is None:
+            delattr(owner, attr)
+        else:
+            setattr(owner, attr, own)
 
 
 class PhaseTimer:
@@ -663,9 +738,12 @@ class PhaseTimer:
             timed.infer_dtype = fn.infer_dtype
         setattr(obj, attr, timed)
 
-    def ms(self) -> dict:
+    def calls_ms(self, phase: str) -> list:
         torch.cuda.synchronize()
-        return {k: sum(s.elapsed_time(e) for s, e in v) for k, v in self.events.items()}
+        return [s.elapsed_time(e) for s, e in self.events[phase]]
+
+    def ms(self) -> dict:
+        return {k: sum(self.calls_ms(k)) for k in self.events}
 
 
 def network_flops(net, planes: torch.Tensor, mask: torch.Tensor) -> int:
@@ -719,13 +797,13 @@ def zero_phase(cfg) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    steps = count_calls(planner.mcts, "_descend_step")
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    res = planner.run(ZERO_B, max_steps=ZERO_STEPS, generator=gen)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = launch_counts()
+    with count_calls(planner.mcts, "_descend_step") as steps:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = planner.run(ZERO_B, max_steps=ZERO_STEPS, generator=gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
     log(f"  launches in the run: {launches}; descent steps {steps[0]}")
     for name in ("spd_inverse", "edge_factor_gain"):
@@ -733,7 +811,6 @@ def zero_phase(cfg) -> dict:
     check(launches["edge_factor_gain"] == steps[0],
           "edge_factor_gain did not launch once per descent step")
     check(launches["spd_inverse_factor"] == 0, "spd_inverse_factor launched on the zero path")
-    del planner.mcts._descend_step  # the class's method again
 
     check(len(visits.Ns) == ZERO_STEPS, f"{len(visits.Ns)} searches for {ZERO_STEPS} replans")
     root_ns = torch.stack(visits.Ns)  # (steps, B)
@@ -851,6 +928,294 @@ def zero_agreement_phase(cfg) -> dict:
             "launches": launches, "mean_uncertainty": unc.tolist()}
 
 
+# ------------------------------------------------------------ MCTS-zero training
+
+class PartMeter:
+    """Peak device memory and host seconds (synchronised before and after)
+    of each call of wrapped methods, by part."""
+
+    def __init__(self):
+        self.gb, self.seconds = {}, {}
+
+    def wrap(self, obj, attr: str, part: str) -> None:
+        fn = getattr(obj, attr)
+
+        def measured(*args, **kw):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.seconds.setdefault(part, []).append(time.perf_counter() - t0)
+            self.gb[part] = max(self.gb.get(part, 0.0), torch.cuda.max_memory_allocated() / 1e9)
+            return out
+
+        setattr(obj, attr, measured)
+
+
+def share_changed(before: dict, after: dict, suffix: str) -> float:
+    """The share of the state dict's tensors named ``*suffix`` that moved."""
+    names = [k for k in before if k.endswith(suffix)]
+    return sum(not torch.equal(before[k], after[k]) for k in names) / max(len(names), 1)
+
+
+def train_step_timing(learner, hp, cfg) -> dict:
+    """LOSS_STEPS train steps at LOSS_LR on one fixed batch of the phase's
+    replay window, on a copy of the learner's state with a fresh optimiser:
+    the loss's excess over its floor (the cross-entropy cannot go below
+    the target policies' entropy) must fall; the steps are timed by CUDA
+    events."""
+    state = reset_optimizer(hp, load_checkpoint(learner.deployment_path(), learner.state))
+    win, slots = learner.replay.device_window(hp.max_train_examples_history)
+    rows = learner.replay.epoch_rows(1, hp.batch_size, np.random.default_rng(0), slots)[0]
+    batch = learner.replay._gather_device(win, torch.as_tensor(rows, device="cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    p = batch.policy
+    floor = torch.mean(-torch.sum(torch.where(p > 0, p * torch.log(p), 0.0), dim=-1)).item()
+    losses, norms = [], []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    state, m, _ = learner.train_step(state, batch, gen, LOSS_LR)  # warm-up, and the first loss
+    losses.append(m["total_loss"])
+    start.record()
+    for _ in range(LOSS_STEPS - 1):
+        state, m, _ = learner.train_step(state, batch, gen, LOSS_LR)
+        losses.append(m["total_loss"])
+        norms.append(m["grad_norm"])
+    end.record()
+    end.synchronize()
+    step_ms = start.elapsed_time(end) / (LOSS_STEPS - 1)
+    losses = [x.item() for x in losses]
+    n = cfg.environment.num_cells
+    flops = network_flops(learner.net, torch.zeros((hp.batch_size, n, n, plane_channels(hp)),
+                                                   device="cuda"),
+                          torch.ones((hp.batch_size, learner.world.num_actions), device="cuda"))
+    out = {
+        "loss_steps": LOSS_STEPS, "loss_lr": LOSS_LR, "loss_first": losses[0],
+        "loss_last": losses[-1], "loss_floor": floor,
+        "loss_ratio": (losses[-1] - floor) / (losses[0] - floor),
+        "train_step_ms": step_ms, "samples_per_s": hp.batch_size / (step_ms * 1e-3),
+        "forward_flops": flops, "train_tflops_per_s": 3 * flops / (step_ms * 1e-3) / 1e12,
+    }
+    log(f"  fixed batch: {LOSS_STEPS} steps at lr {LOSS_LR:g}: loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} over the target entropy {floor:.4f}: excess ratio "
+        f"{out['loss_ratio']:.3f} (must be < {LOSS_RATIO})")
+    check(all(np.isfinite(losses)) and all(bool(torch.isfinite(x)) for x in norms),
+          "fixed-batch losses or gradient norms not finite")
+    check(out["loss_ratio"] < LOSS_RATIO, "training on a fixed batch did not lower its loss")
+    log(f"  train step (B={hp.batch_size}): {step_ms:.2f} ms by CUDA events, "
+        f"{out['samples_per_s']:.0f} samples/s; forward {flops / 1e12:.4f} TFLOP, forward + "
+        f"backward counted as 3x: {out['train_tflops_per_s']:.1f} TFLOP/s")
+    return out
+
+
+def training_phase(cfg) -> dict:
+    mc = zero_mission(cfg, max_episode_steps=TRAIN_EPISODE_STEPS)
+    hp = mc.hyper_params
+    sims = hp.num_mcts_simulations
+    log(f"== MCTS-zero training: example.yaml mission 0, {hp.num_channels} channels, "
+        f"{hp.num_encoder_res_blocks} encoder blocks, {sims} simulations, horizon "
+        f"{mc.episode_horizon}, batch {hp.batch_size}, {hp.num_epochs} epochs, "
+        f"{'PER' if hp.use_per else 'uniform'} replay, dropout {hp.dropout}; cut to "
+        f"{TRAIN_ENVS} envs x {TRAIN_EPISODE_STEPS} steps, {TRAIN_ITERATIONS} iterations")
+    check(not hp.use_per and hp.continuous_network_update and hp.dropout == 0.0,
+          "mission 0 is not uniform replay, continuous update, dropout 0")
+    world = IPPWorld(cfg)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        learner = ZeroLearner(world, mc, checkpoints_dir=os.path.join(tmp, "ckpt"),
+                              log_dir=os.path.join(tmp, "logs"), num_envs=TRAIN_ENVS, seed=0)
+        before = {k: v.clone() for k, v in learner.state.variables().items()}
+        visits = RootVisits(learner)
+        meter = PartMeter()
+        meter.wrap(learner.selfplay, "run", "selfplay")
+        meter.wrap(learner, "train_iteration", "train")
+        torch.cuda.synchronize()
+        with count_calls(world, "step_index") as commits, \
+                count_calls(ZeroMCTS, "_descend_step") as descents:
+            # the self-play searches split by CUDA events, as phase 5 splits a replan
+            timer = PhaseTimer()
+            for attr, part in (("_descend_step", "descent"), ("_leaf_outputs", "leaf_planes"),
+                               ("leaf_planes", "leaf_planes"), ("predict", "forward"),
+                               ("_integrate_eval", "integrate_backup"),
+                               ("_backup", "integrate_backup")):
+                timer.wrap(learner.mcts, attr, part)
+            timer.wrap(learner.selfplay, "run", "selfplay")
+            timer.wrap(learner, "train_iteration", "train")
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            learner.learn(num_iterations=TRAIN_ITERATIONS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = launch_counts()
+        split = timer.ms()
+        split["selfplay_other"] = split["selfplay"] - sum(
+            split[k] for k in ("descent", "leaf_planes", "forward", "integrate_backup"))
+        selfplay_steps = commits[0]
+        log(f"  learn by CUDA events, over {selfplay_steps} self-play steps: "
+            + ", ".join(f"{k} {v:.0f} ms" for k, v in split.items()))
+        log(f"  learn: {wall:.1f} s; launches {launches}; descent steps {descents[0]}, "
+            f"self-play steps {selfplay_steps}")
+        check(selfplay_steps == TRAIN_ITERATIONS * TRAIN_EPISODE_STEPS,
+              f"{selfplay_steps} self-play commits for {TRAIN_ITERATIONS} x "
+              f"{TRAIN_EPISODE_STEPS} steps")
+        for name in ("spd_inverse", "edge_factor_gain"):
+            check(launches[name] > 0, f"{name} was not launched on the training path")
+        check(launches["edge_factor_gain"] == descents[0] + selfplay_steps,
+              "edge_factor_gain did not launch once per descent step and self-play step")
+        check(launches["spd_inverse_factor"] == 0, "spd_inverse_factor launched in training")
+        check(launches["spd_inverse"] == selfplay_steps, "spd_inverse: not one per commit")
+
+        with open(os.path.join(tmp, "logs", "train_metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        (out_dir / "train_metrics.jsonl").write_text("".join(json.dumps(r) + "\n" for r in rows))
+        check(len(rows) == TRAIN_ITERATIONS, f"{len(rows)} metric rows")
+        for r in rows:
+            for k in ("policy_loss", "value_loss", "entropy", "total_loss", "grad_norm"):
+                check(np.isfinite(r[k]), f"iteration {r['iteration']}: {k} not finite")
+        traj = learner.replay._iters[TRAIN_ITERATIONS - 1]
+        check(int(traj.sample_ok.sum()) > 0, "self-play produced no samples")
+        check(bool(np.all(np.isfinite(traj.value)) and np.all(traj.value >= 0)),
+              "value targets not finite or negative")
+        # the root visit total of the last iteration's searches, where the
+        # mission was running (sample_ok: running with a valid action)
+        ns = torch.stack(visits.Ns[-TRAIN_EPISODE_STEPS:], dim=1).cpu().numpy()  # (E, T)
+        running = ns[traj.sample_ok]
+        log(f"  root visit totals of running missions: min {running.min():g}, max "
+            f"{running.max():g} (want {sims - 1}); {int((~traj.sample_ok).sum())} roots not "
+            f"running")
+        check(bool(np.all(running == sims - 1)), "a self-play root's visit total is not sims - 1")
+        after = learner.state.variables()
+        moved = {s: share_changed(before, after, s) for s in (".weight", ".bias", "running_mean",
+                                                              "running_var")}
+        log("  share of tensors moved by training: "
+            + ", ".join(f"{k} {v:.0%}" for k, v in moved.items()))
+        check(moved[".weight"] > 0.5, "parameters did not change")
+        check(moved["running_var"] > 0.5, "BatchNorm statistics did not change")
+        # the deployment checkpoint reads back bitwise through the port's reader
+        stored = read_checkpoint(learner.deployment_path())
+        want = checkpoint_variables(learner.state)
+
+        def leaves(tree, path=()):
+            for k in sorted(tree):
+                if isinstance(tree[k], dict):
+                    yield from leaves(tree[k], path + (k,))
+                else:
+                    yield path + (k,), tree[k]
+
+        got, ref = list(leaves(stored)), list(leaves(want))
+        check([p for p, _ in got] == [p for p, _ in ref] and all(
+            g.dtype == w.dtype and g.shape == w.shape and g.tobytes() == w.tobytes()
+            for (_, g), (_, w) in zip(got, ref)), "deployment checkpoint does not read back")
+        log(f"  deployment checkpoint: {len(got)} arrays read back bitwise")
+
+        t0 = time.perf_counter()
+        timing = train_step_timing(learner, hp, cfg)
+        timing["loss_check_s"] = time.perf_counter() - t0
+
+        # the arena gate: the learner's network against the one before training
+        learner.arena.max_game_steps = ARENA_STEPS
+        prev = load_checkpoint(os.path.join(tmp, "ckpt", "shared_net.temp"), learner.state)
+        meter.wrap(learner.arena, "play_games", "arena")
+        with count_calls(ZeroMCTS, "_descend_step") as arena_descents:
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            accepted = learner.arena_gate(prev, ARENA_GAMES)
+            torch.cuda.synchronize()
+            arena_wall = time.perf_counter() - t0
+            arena_launches = launch_counts()
+        arena_steps = 2 * ARENA_STEPS
+        log(f"  arena gate: {ARENA_GAMES} games x {ARENA_STEPS} steps per network, "
+            f"accepted={accepted}, {arena_wall:.1f} s; launches {arena_launches}; descent steps "
+            f"{arena_descents[0]}")
+        check(arena_launches["edge_factor_gain"] == arena_descents[0] + arena_steps,
+              "edge_factor_gain did not launch once per arena descent step and game step")
+        check(arena_launches["spd_inverse_factor"] == 0, "spd_inverse_factor launched in the arena")
+
+    # self-play is SelfPlay.run alone, in the second iteration (no first-call
+    # set-up); the learner's selfplay_s also holds the trajectory's copy to
+    # the host, add_iteration and the npz write: the learner loop's I/O
+    sp_s = meter.seconds["selfplay"][-1]
+    sp_event_ms = timer.calls_ms("selfplay")[-1]
+    out = {
+        "envs": TRAIN_ENVS, "episode_steps": TRAIN_EPISODE_STEPS, "iterations": TRAIN_ITERATIONS,
+        "simulations": sims, "batch": hp.batch_size, "epochs": hp.num_epochs,
+        "learn_wall_s": wall, "metrics": rows,
+        "selfplay_ms_per_step": sp_s / TRAIN_EPISODE_STEPS * 1e3,
+        "selfplay_ms_per_mission_step": sp_s / (TRAIN_EPISODE_STEPS * TRAIN_ENVS) * 1e3,
+        "selfplay_event_ms_per_step": sp_event_ms / TRAIN_EPISODE_STEPS,
+        "learner_selfplay_io_s": rows[-1]["selfplay_s"] - sp_s,
+        "train_iteration_s": rows[-1]["train_s"],
+        "arena_wall_s": arena_wall, "arena_ms_per_game_step": arena_wall / arena_steps * 1e3,
+        "arena_accepted": accepted,
+        "peak_mem_gb": meter.gb,
+        "launches": {k: launches[k] + arena_launches[k] for k in launches},
+        "launches_learn": launches, "launches_arena": arena_launches,
+        "descent_steps": descents[0], "selfplay_steps": selfplay_steps, "moved": moved,
+        "learn_split_ms": split,
+        "arena_descent_steps": arena_descents[0], "arena_steps": arena_steps,
+        **timing,
+    }
+    log(f"  self-play (SelfPlay.run, iteration 1): {out['selfplay_ms_per_step']:.1f} ms per step "
+        f"of {TRAIN_ENVS} envs by the host clock ({out['selfplay_event_ms_per_step']:.1f} by CUDA "
+        f"events), {out['selfplay_ms_per_mission_step']:.2f} ms per mission-step; the learner's "
+        f"copy to the host, add_iteration and npz write {out['learner_selfplay_io_s']:.2f} s; train "
+        f"iteration {out['train_iteration_s']:.2f} s; arena {out['arena_ms_per_game_step']:.1f} "
+        f"ms per game step; peaks " + ", ".join(f"{k} {v:.2f} GB" for k, v in meter.gb.items()))
+    return out
+
+
+def training_agreement_phase(cfg) -> dict:
+    log(f"== kernels vs plain versions on the training slice: committed checkpoint, self-play "
+        f"E={TRAIN_AGREE_ENVS} x {TRAIN_AGREE_STEPS} steps and one arena batch of "
+        f"{ARENA_GAMES} games x {ARENA_STEPS} steps, {TRAIN_AGREE_SIMS} simulations, "
+        f"deterministic algorithms")
+    mc = zero_mission(cfg, **CHECKPOINT_HP, max_episode_steps=TRAIN_AGREE_STEPS,
+                      num_mcts_simulations=TRAIN_AGREE_SIMS)
+    hp = mc.hyper_params
+    world = IPPWorld(cfg)
+    net = load_checkpoint(str(CHECKPOINT), init_network(cfg, hp, torch.Generator(device="cuda")))
+    predict, variables = predict_fn(net), net.state_dict()
+    selfplay = SelfPlay(world, hp, mc.episode_horizon,
+                        ZeroMCTS(world, hp, mc.episode_horizon, predict))
+    arena = Arena(world, hp, mc.episode_horizon, max_game_steps=ARENA_STEPS)
+
+    def run():
+        traj, values = selfplay.run(TRAIN_AGREE_ENVS, net_variables=variables,
+                                    generator=torch.Generator(device="cuda").manual_seed(7))
+        total = arena._play_batch(predict, variables, ARENA_GAMES,
+                                  torch.Generator(device="cuda").manual_seed(8))
+        return traj, values, total
+
+    torch.backends.cudnn.benchmark = False
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        kernels.reset_launch_counts()
+        with_kernels = run()
+        launches = launch_counts()
+        with plain_versions():
+            plain = run()
+        check(launch_counts() == launches, "a kernel launched under plain_versions()")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for name in ("spd_inverse", "edge_factor_gain"):
+        check(launches[name] > 0, f"{name} was not launched in the training agreement run")
+    (k_traj, k_values, k_total), (p_traj, p_values, p_total) = with_kernels, plain
+    same = [name for name, a, b in zip(k_traj._fields, k_traj, p_traj) if torch.equal(a, b)]
+    check(len(same) == len(k_traj._fields),
+          f"trajectory fields differ: {sorted(set(k_traj._fields) - set(same))}")
+    check(torch.equal(k_values, p_values), "episode values differ")
+    check(torch.equal(k_total, p_total), "arena totals differ")
+    samples = int(k_traj.sample_ok.sum())
+    log(f"  trajectories ({samples} samples), episode values and arena totals identical; "
+        f"launches with kernels {launches}; mean episode value {k_values.mean().item():.3f}, "
+        f"arena total {k_total.sum().item():.3f}")
+    return {"envs": TRAIN_AGREE_ENVS, "steps": TRAIN_AGREE_STEPS, "simulations": TRAIN_AGREE_SIMS,
+            "arena_games": ARENA_GAMES, "arena_steps": ARENA_STEPS, "identical": True,
+            "samples": samples, "launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs an NVIDIA card",
@@ -877,29 +1242,44 @@ def main() -> int:
             if show:
                 log("  ptxas:", line.strip())
 
+    phase_s = {}  # host seconds of each phase, to show where the script's time goes
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t
+        return out
+
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    rows = kernel_phase(gen)
+    rows = timed("kernels", kernel_phase, gen)
     # the graph capture of the parent's edge tail leaves a cuBLAS workspace
     # (32 MiB) on its side stream; release it so the slices' peaks count
     # only their own memory
     torch._C._cuda_clearCublasWorkspaces()
     cfg = load_config(str(CONFIG_DIR / "example.yaml"))
-    greedy = greedy_phase(cfg)
-    agreement = agreement_phase(cfg)
-    zero = zero_phase(cfg)
-    zero_agreement = zero_agreement_phase(cfg)
-    for r in rows:  # over both main paths, each counted from 0
+    greedy = timed("greedy", greedy_phase, cfg)
+    agreement = timed("greedy_agreement", agreement_phase, cfg)
+    zero = timed("zero", zero_phase, cfg)
+    zero_agreement = timed("zero_agreement", zero_agreement_phase, cfg)
+    training = timed("training", training_phase, cfg)
+    training_agreement = timed("training_agreement", training_agreement_phase, cfg)
+    log(f"phase seconds: build {build_s:.1f}, " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
+        + f"; training: learn {training['learn_wall_s']:.1f}, fixed-batch check "
+        f"{training['loss_check_s']:.1f}, arena gate {training['arena_wall_s']:.1f}")
+    for r in rows:  # over the main paths, each counted from 0
         r["launches_by_path"] = {"greedy": greedy["launches"][r["name"]],
-                                 "zero": zero["launches"][r["name"]]}
+                                 "zero": zero["launches"][r["name"]],
+                                 "train": training["launches"][r["name"]]}
         r["launches"] = sum(r["launches_by_path"].values())
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "card": card, "kind": kind, "torch": torch.__version__,
-        "cuda": torch.version.cuda, "build_s": build_s, "kernels": rows,
+        "cuda": torch.version.cuda, "build_s": build_s, "phase_s": phase_s, "kernels": rows,
         "greedy": greedy, "agreement": agreement, "zero": zero,
-        "zero_agreement": zero_agreement,
+        "zero_agreement": zero_agreement, "training": training,
+        "training_agreement": training_agreement,
     }, indent=1))
 
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",

@@ -9,7 +9,8 @@ What crosses:
   * per-step measurement noise (T, B, M);
   * the policy-value network's weights: a flax variable tree (nested
     dicts of numpy arrays, as ``serialization.read_checkpoint`` or flax
-    itself gives it) becomes the port's ``state_dict``.
+    itself gives it) becomes the port's ``state_dict``, and back
+    (``flax_variables``, for the checkpoints the port writes).
 
 They land on the port's device in the port's dtype, so the two packages
 compute the same thing from the same draws and weights
@@ -113,4 +114,38 @@ def network_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
     for collection in ("params", "batch_stats"):
         walk(variables.get(collection, {}), ())
+    return out
+
+
+def flax_variables(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The flax variable tree ``{"params": ..., "batch_stats": ...}`` (nested
+    dicts of C-ordered numpy arrays) of one network's ``state_dict``: the
+    inverse of :func:`network_state_dict`.  Conv weights OIHW → HWIO (a
+    transposed conv's also flipped in both spatial axes), Linear (out, in)
+    → Dense (in, out), BatchNorm weight/bias/running_mean/running_var →
+    scale/bias/mean/var; ``num_batches_tracked`` is dropped."""
+    out: Dict[str, Any] = {"params": {}, "batch_stats": {}}
+    for full, tensor in state_dict.items():
+        *path, name = full.split(".")
+        if name == "num_batches_tracked":
+            continue
+        value = tensor.detach().cpu().numpy()
+        collection = "params"
+        if name == "weight" and value.ndim == 4:
+            if path[-1].startswith("ConvTranspose_"):
+                name, value = "kernel", np.flip(value.transpose(2, 3, 0, 1), (0, 1))
+            else:
+                name, value = "kernel", value.transpose(2, 3, 1, 0)  # OIHW → HWIO
+        elif name == "weight" and value.ndim == 2:
+            name, value = "kernel", value.T
+        elif name == "weight" and value.ndim == 1:
+            name = "scale"
+        elif name in ("running_mean", "running_var"):
+            collection, name = "batch_stats", name[len("running_"):]
+        elif name != "bias":
+            raise KeyError(f"unknown state_dict entry {full} {tuple(value.shape)}")
+        node = out[collection]
+        for part in path:
+            node = node.setdefault(part, {})
+        node[name] = np.ascontiguousarray(value)
     return out

@@ -10,7 +10,8 @@ modules leave to defaults is spelled out here:
   * no bias on ``ConvBN``'s convolution, the downsample convolution and
     the mixing block's 3×3 convolution;
   * BatchNorm eps 1e-5, except 1e-3 in ``NonBottleneck1d``'s two norms;
-    flax's momentum 0.9 is torch's 0.1;
+    momentum (flax's sense: the running statistics' share) 0.9 in
+    ``ConvBN``, flax's default 0.99 in every other norm;
   * ``GlobalPooling`` concatenates the mean, then the max.
 
 Submodules carry flax's names (``Conv_0``, ``BatchNorm_1``, ``Dense_0``,
@@ -19,8 +20,13 @@ name a flax ``setup`` gives), so a flax variable tree maps one to one onto
 the state dict (convert.network_state_dict).  A block that flax would
 never call, and so never give parameters, is not created.
 
-The blocks are the inference half of the JAX package's: dropout, which is
-off at inference, belongs to the training slice.
+Every block's ``forward`` takes ``train`` (False: inference) and a
+``generator``.  In training mode BatchNorm normalises with the batch's
+statistics and blends them into its running statistics as flax does
+(with the *biased* batch variance), and dropout draws its mask
+from ``generator`` (flax: ``bernoulli(keep)``, kept entries divided by
+``keep``).  ``ResidualBlock``, ``NonBottleneck1d`` and ``MixGlobalContext``
+carry the dropout, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -41,8 +47,48 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-def batch_norm(features: int, eps: float = 1e-5) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(features, eps=eps, momentum=0.1)
+class BatchNorm(nn.BatchNorm2d):
+    """``nn.BatchNorm2d``'s parameters and buffers (so state dicts keep
+    their names), with flax's training update.  ``train=False`` uses the
+    running statistics; ``train=True`` normalises with the batch's and
+    then sets ``running = m·running + (1 − m)·batch`` with the biased batch
+    variance, as flax's ``BatchNorm(momentum=m)`` does.  torch's own
+    update would blend in the unbiased variance, so it is not used;
+    ``num_batches_tracked`` stays as it was (flax keeps no count)."""
+
+    def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.99):
+        super().__init__(features, eps=eps, momentum=1.0 - momentum)
+        self.flax_momentum = momentum
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if not train:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                                False, 0.0, self.eps)
+        out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        with torch.no_grad():
+            dims = (0, 2, 3)
+            m = self.flax_momentum
+            self.running_mean.copy_(m * self.running_mean + (1.0 - m) * x.mean(dim=dims))
+            self.running_var.copy_(m * self.running_var
+                                   + (1.0 - m) * x.var(dim=dims, unbiased=False))
+        return out
+
+
+def batch_norm(features: int, eps: float = 1e-5, momentum: float = 0.99) -> BatchNorm:
+    """flax's ``nn.BatchNorm`` defaults: eps 1e-5, momentum 0.99."""
+    return BatchNorm(features, eps, momentum)
+
+
+def dropout(x: torch.Tensor, rate: float, train: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax's ``nn.Dropout``: the identity unless training with rate > 0;
+    then each entry is kept with probability 1 − rate (a uniform draw from
+    ``generator`` below it) and scaled by 1 / (1 − rate)."""
+    if not train or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    u = torch.rand(x.shape, generator=generator, dtype=x.dtype, device=x.device)
+    return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 
 class ConvBN(nn.Module):
@@ -52,10 +98,10 @@ class ConvBN(nn.Module):
                  stride: int = 1, padding: int = 0, bn_eps: float = 1e-5):
         super().__init__()
         self.Conv_0 = nn.Conv2d(in_features, features, kernel, stride, padding, bias=False)
-        self.BatchNorm_0 = batch_norm(features, bn_eps)
+        self.BatchNorm_0 = batch_norm(features, bn_eps, momentum=0.9)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.BatchNorm_0(self.Conv_0(x))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return self.BatchNorm_0(self.Conv_0(x), train)
 
 
 class GlobalPooling(nn.Module):
@@ -70,18 +116,20 @@ class ResidualBlock(nn.Module):
     """Plain 3×3 residual block (reference layers.py:11-37)."""
 
     def __init__(self, in_features: int, features: int, stride: int = 1,
-                 use_silu: bool = True, use_1x1conv: bool = False):
+                 use_silu: bool = True, use_1x1conv: bool = False, dropout: float = 0.0):
         super().__init__()
         self.act = nonlinearity_fn(use_silu)
-        self.use_1x1conv = use_1x1conv
+        self.use_1x1conv, self.dropout = use_1x1conv, dropout
         if use_1x1conv:
             self.Conv_0 = nn.Conv2d(in_features, features, 1, stride)
         self.ConvBN_0 = ConvBN(in_features, features, (3, 3), stride, 1)
         self.ConvBN_1 = ConvBN(features, features, (3, 3), 1, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         identity = self.Conv_0(x) if self.use_1x1conv else x
-        out = self.ConvBN_1(self.act(self.ConvBN_0(x)))
+        out = self.ConvBN_1(self.act(self.ConvBN_0(x, train)), train)
+        out = dropout(out, self.dropout, train, generator)
         return self.act(out + identity)
 
 
@@ -93,10 +141,11 @@ class NonBottleneck1d(nn.Module):
 
     def __init__(self, in_features: int, features: int, dilated: int = 1,
                  use_silu: bool = True, use_1x1conv: bool = False,
-                 down_sample: bool = False):
+                 down_sample: bool = False, dropout: float = 0.0):
         super().__init__()
         self.act = nonlinearity_fn(use_silu)
         self.down_sample, self.use_1x1conv = down_sample, use_1x1conv
+        self.dropout = dropout
         f, d = features, dilated
         convs = []
         if down_sample:
@@ -116,18 +165,20 @@ class NonBottleneck1d(nn.Module):
         for k, norm in enumerate(norms):
             self.add_module(f"BatchNorm_{k}", norm)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         act = self.act
         conv = iter(getattr(self, f"Conv_{k}") for k in range(6))
         norm = iter(getattr(self, f"BatchNorm_{k}") for k in range(3))
         if self.down_sample:
-            x = act(next(norm)(next(conv)(x)))
+            x = act(next(norm)(next(conv)(x), train))
         if self.use_1x1conv:
             x = next(conv)(x)
         out = act(next(conv)(x))
-        out = act(next(norm)(next(conv)(out)))
+        out = act(next(norm)(next(conv)(out), train))
         out = act(next(conv)(out))
-        out = next(norm)(next(conv)(out))
+        out = next(norm)(next(conv)(out), train)
+        out = dropout(out, self.dropout, train, generator)
         return act(out + x)
 
 
@@ -138,7 +189,7 @@ class MixGlobalContext(nn.Module):
 
     def __init__(self, in_features: int, features: int,
                  num_global_pooling_channels: int = 32, stride: int = 1,
-                 use_silu: bool = True):
+                 use_silu: bool = True, dropout: float = 0.0):
         super().__init__()
         g = num_global_pooling_channels
         if g >= features:
@@ -146,7 +197,7 @@ class MixGlobalContext(nn.Module):
                 f"num_global_pooling_channels ({g}) must be < num_channels ({features})"
             )
         self.act = nonlinearity_fn(use_silu)
-        self.g, self.stride = g, stride
+        self.g, self.stride, self.dropout = g, stride, dropout
         convs = []
         if stride > 1:  # the identity: 1×1, strided, with a bias
             convs.append(nn.Conv2d(in_features, features, 1, stride))
@@ -158,16 +209,18 @@ class MixGlobalContext(nn.Module):
         self.Dense_0 = nn.Linear(2 * g, features - g)
         self.ConvBN_0 = ConvBN(features, features, (3, 3), 1, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         act, g = self.act, self.g
         if self.stride > 1:
             identity, out = self.Conv_0(x), self.Conv_1(x)
         else:
             identity, out = x, self.Conv_0(x)
-        pool = self.pool(act(self.BatchNorm_0(out[:, :g])))  # (B, 2G)
+        pool = self.pool(act(self.BatchNorm_0(out[:, :g], train)))  # (B, 2G)
         pool = act(self.Dense_0(pool))
         out = torch.cat([out[:, :g], out[:, g:] + pool[:, :, None, None]], dim=1)
-        out = self.ConvBN_0(out)
+        out = self.ConvBN_0(out, train)
+        out = dropout(out, self.dropout, train, generator)
         return act(out + identity)
 
 
@@ -190,7 +243,8 @@ class Encoder(nn.Module):
 
     def __init__(self, input_channels: int, features: int, num_res_blocks: int,
                  use_silu: bool = True, use_separable: bool = True,
-                 use_global_context: bool = True, num_global_pooling_channels: int = 32):
+                 use_global_context: bool = True, num_global_pooling_channels: int = 32,
+                 dropout: float = 0.0):
         super().__init__()
         self.act = nonlinearity_fn(use_silu)
         f = features
@@ -199,18 +253,20 @@ class Encoder(nn.Module):
         for kind in dict.fromkeys(self.plan):
             stride = int(kind[-1])
             if kind.startswith("mix"):
-                block = MixGlobalContext(f, f, num_global_pooling_channels, stride, use_silu)
+                block = MixGlobalContext(f, f, num_global_pooling_channels, stride, use_silu,
+                                         dropout)
             elif use_separable:
                 block = NonBottleneck1d(f, f, 1, use_silu, use_1x1conv=True,
-                                        down_sample=stride == 2)
+                                        down_sample=stride == 2, dropout=dropout)
             else:
-                block = ResidualBlock(f, f, stride, use_silu, use_1x1conv=True)
+                block = ResidualBlock(f, f, stride, use_silu, use_1x1conv=True, dropout=dropout)
             self.add_module(kind, block)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.act(self.stem(x))
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = self.act(self.stem(x, train))
         for kind in self.plan:
-            x = getattr(self, kind)(x)
+            x = getattr(self, kind)(x, train, generator)
         return x
 
 
@@ -230,12 +286,12 @@ class Decoder(nn.Module):
         self.BatchNorm_1 = batch_norm(c // 8)
         self.ConvBN_1 = ConvBN(c // 8, 1, (3, 3), 1, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         act = self.act
-        x = act(self.BatchNorm_0(self.ConvTranspose_0(x)))
-        x = act(self.ConvBN_0(x))
-        x = act(self.BatchNorm_1(self.ConvTranspose_1(x)))
-        return self.ConvBN_1(x)[:, 0]
+        x = act(self.BatchNorm_0(self.ConvTranspose_0(x), train))
+        x = act(self.ConvBN_0(x, train))
+        x = act(self.BatchNorm_1(self.ConvTranspose_1(x), train))
+        return self.ConvBN_1(x, train)[:, 0]
 
 
 class _Head(nn.Module):
@@ -244,22 +300,27 @@ class _Head(nn.Module):
     pooling."""
 
     def __init__(self, features: int, num_blocks: int, out_features: int,
-                 use_silu: bool, use_global_context: bool, num_global_pooling_channels: int):
+                 use_silu: bool, use_global_context: bool, num_global_pooling_channels: int,
+                 dropout: float):
         super().__init__()
         self.act = nonlinearity_fn(use_silu)
         self.plan = ["mix" if i == 0 and use_global_context else "conv_block"
                      for i in range(num_blocks)]
         if "mix" in self.plan:
             self.mix = MixGlobalContext(features, features, num_global_pooling_channels, 1,
-                                        use_silu)
+                                        use_silu, dropout)
         if "conv_block" in self.plan:
             self.conv_block = ConvBN(features, features, (3, 3), 1, 1)
         self.pool = GlobalPooling()
         self.head = nn.Linear(2 * features, out_features)
 
-    def trunk(self, x: torch.Tensor) -> torch.Tensor:
+    def trunk(self, x: torch.Tensor, train: bool, generator: Optional[torch.Generator]
+              ) -> torch.Tensor:
         for kind in self.plan:
-            x = self.mix(x) if kind == "mix" else self.act(self.conv_block(x))
+            if kind == "mix":
+                x = self.mix(x, train, generator)
+            else:
+                x = self.act(self.conv_block(x, train))
         return self.pool(x)
 
 
@@ -271,13 +332,16 @@ class ValueHead(_Head):
 
     def __init__(self, features: int, num_blocks: int, use_silu: bool = True,
                  use_reward_target: bool = False, use_global_context: bool = True,
-                 num_global_pooling_channels: int = 32, unfloored: bool = False):
+                 num_global_pooling_channels: int = 32, unfloored: bool = False,
+                 dropout: float = 0.0):
         super().__init__(features, num_blocks, 1, use_silu, use_global_context,
-                         num_global_pooling_channels)
+                         num_global_pooling_channels, dropout)
         self.use_reward_target, self.unfloored = use_reward_target, unfloored
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        z = self.head(self.trunk(x))
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        z = self.head(self.trunk(x, train, generator))
         if not self.unfloored:
             z = self.act(z)
         value = softplus(z)[:, 0]
@@ -291,13 +355,15 @@ class PolicyHead(_Head):
 
     def __init__(self, features: int, num_blocks: int, num_actions: int,
                  use_silu: bool = True, mask_policy: bool = True,
-                 use_global_context: bool = True, num_global_pooling_channels: int = 32):
+                 use_global_context: bool = True, num_global_pooling_channels: int = 32,
+                 dropout: float = 0.0):
         super().__init__(features, num_blocks, num_actions, use_silu, use_global_context,
-                         num_global_pooling_channels)
+                         num_global_pooling_channels, dropout)
         self.mask_policy = mask_policy
 
-    def forward(self, x: torch.Tensor, valid_mask: torch.Tensor) -> torch.Tensor:
-        logits = self.head(self.trunk(x))
+    def forward(self, x: torch.Tensor, valid_mask: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        logits = self.head(self.trunk(x, train, generator))
         if self.mask_policy:
             logits = logits - (1.0 - valid_mask.to(logits.dtype)) * 1000.0
         return torch.log_softmax(logits, dim=-1)

@@ -10,6 +10,9 @@ Inputs are the feature planes in the JAX package's NHWC layout
 (B, S, S, C), S = num_grid_cells; they are permuted to NCHW once, at the
 network's input (a free view when the planes were built NCHW, as
 planners/zero/features.feature_planes builds them).
+
+``train=True`` runs every block in training mode (models/layers.py: batch
+statistics, dropout of rate ``hp.dropout`` drawn from ``generator``).
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ def _encoder(hp: MCTSZeroHyperParams) -> Encoder:
         use_separable=hp.use_separable_conv_layers,
         use_global_context=hp.use_global_context_mixing,
         num_global_pooling_channels=hp.num_global_pooling_channels,
+        dropout=hp.dropout,
     )
 
 
@@ -56,6 +60,7 @@ def _policy_head(hp: MCTSZeroHyperParams, num_actions: int) -> PolicyHead:
         mask_policy=hp.mask_policy_head,
         use_global_context=hp.use_global_context_mixing,
         num_global_pooling_channels=hp.num_global_pooling_channels,
+        dropout=hp.dropout,
     )
 
 
@@ -68,6 +73,7 @@ def _value_head(hp: MCTSZeroHyperParams) -> ValueHead:
         use_global_context=hp.use_global_context_mixing,
         num_global_pooling_channels=hp.num_global_pooling_channels,
         unfloored=hp.unfloored_value_head,
+        dropout=hp.dropout,
     )
 
 
@@ -85,15 +91,16 @@ class PolicyValueNetwork(nn.Module):
             self.decoder = Decoder(hp.num_channels, use_silu=hp.use_silu)
 
     def forward(
-        self, x: torch.Tensor, valid_mask: torch.Tensor
+        self, x: torch.Tensor, valid_mask: torch.Tensor, train: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
         """x: (B, S, S, C) planes; valid_mask: (B, A).  Returns (log_policy
         (B, A), value (B,), reward (B,) | None, reconstruction (B, h, w) |
         None)."""
-        feat = self.encoder(_nchw(x))
-        log_policy = self.policy_head(feat, valid_mask)
-        value, reward = self.value_head(feat)
-        recon = self.decoder(feat) if self.hp.use_autoencoder else None
+        feat = self.encoder(_nchw(x), train, generator)
+        log_policy = self.policy_head(feat, valid_mask, train, generator)
+        value, reward = self.value_head(feat, train, generator)
+        recon = self.decoder(feat, train) if self.hp.use_autoencoder else None
         return log_policy, value, reward, recon
 
 
@@ -105,8 +112,10 @@ class PolicyNetwork(nn.Module):
         self.Encoder_0 = _encoder(hp)
         self.PolicyHead_0 = _policy_head(hp, num_actions)
 
-    def forward(self, x: torch.Tensor, valid_mask: torch.Tensor) -> torch.Tensor:
-        return self.PolicyHead_0(self.Encoder_0(_nchw(x)), valid_mask)
+    def forward(self, x: torch.Tensor, valid_mask: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        feat = self.Encoder_0(_nchw(x), train, generator)
+        return self.PolicyHead_0(feat, valid_mask, train, generator)
 
 
 class ValueNetwork(nn.Module):
@@ -117,8 +126,10 @@ class ValueNetwork(nn.Module):
         self.Encoder_0 = _encoder(hp)
         self.ValueHead_0 = _value_head(hp)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        return self.ValueHead_0(self.Encoder_0(_nchw(x)))
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        return self.ValueHead_0(self.Encoder_0(_nchw(x), train, generator), train, generator)
 
 
 def build_network(cfg: Config, hp: MCTSZeroHyperParams) -> PolicyValueNetwork:

@@ -30,6 +30,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ipp_rl_tpu_torch.device import resolve_device
 from ipp_rl_tpu_torch.ops import kernels
 from ipp_rl_tpu_torch.ops.smallchol import packed_index, packed_size, spd_cholesky_dense
 
@@ -179,7 +180,7 @@ def _packed_diag(values: np.ndarray) -> np.ndarray:
     return out
 
 
-def prepare_batched_sweep(plan, dtype=torch.float32, device="cpu"):
+def prepare_batched_sweep(plan, dtype=torch.float32, device: str | torch.device = "cuda"):
     """Device-constant bundle for :func:`kf_sweep_gains_batched` from a
     SweepPlan built with grid dims (ops/sensor_model.build_sweep_plan).
 
@@ -197,6 +198,7 @@ def prepare_batched_sweep(plan, dtype=torch.float32, device="cpu"):
     identity as a (T, 1) column, for both groups' layouts."""
     if plan.x_dim is None or plan.y_dim is None or not plan.groups:
         raise ValueError("the batched sweep needs a SweepPlan with grid dims")
+    device = resolve_device(device)
     gx, gy = plan.x_dim, plan.y_dim
     N = gx * gy
     groups = []

@@ -41,6 +41,7 @@ from typing import Optional, Tuple
 import torch
 
 from ipp_rl_tpu_torch.config.schema import MCTSZeroHyperParams
+from ipp_rl_tpu_torch.device import resolve_device
 from ipp_rl_tpu_torch.ops.geometry import travel_costs
 from ipp_rl_tpu_torch.ops.kalman import kf_edge_factor_gain
 from ipp_rl_tpu_torch.ops.rewards import adaptive_mask
@@ -73,9 +74,11 @@ class Tree:
 
 def init_tree(
     batch_size: int, num_sims: int, num_actions: int, n: int, m: int,
-    dtype: torch.dtype, edge_dtype: Optional[torch.dtype] = None, device="cpu",
+    dtype: torch.dtype, edge_dtype: Optional[torch.dtype] = None,
+    device: str | torch.device = "cuda",
 ) -> Tree:
     B, c, A = batch_size, num_sims + 2, num_actions
+    device = resolve_device(device)
 
     def full(shape, value, dt):
         return torch.full(shape, value, dtype=dt, device=device)

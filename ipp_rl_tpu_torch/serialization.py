@@ -1,9 +1,10 @@
-"""Reader of flax's msgpack checkpoints, in the standard library and numpy.
+"""Reader and writer of flax's msgpack checkpoints, in the standard library
+and numpy.
 
 The JAX package writes its network variables with
 ``flax.serialization.to_bytes``: a msgpack map of maps whose leaves are
-numpy arrays in msgpack extension types.  The port reads those files
-without flax or msgpack:
+numpy arrays in msgpack extension types.  The port reads and writes those
+files without flax or msgpack:
 
   * msgpack: maps, arrays, str, bin, nil, bool, ints, float32/float64,
     and extension types (the whole format but timestamps);
@@ -13,7 +14,12 @@ without flax or msgpack:
 
 ``msgpack_restore`` gives what ``flax.serialization.msgpack_restore``
 gives: nested dicts with numpy leaves, bit for bit
-(tests/test_torch_zero_net.py).
+(tests/test_torch_zero_net.py).  ``packb`` packs such a tree with
+msgpack's shortest encodings and flax's ndarray extension, map keys
+sorted (it packs only what a checkpoint holds): the
+bytes ``flax.serialization.msgpack_serialize`` gives for the tree with its
+keys sorted, which ``flax.serialization.from_bytes`` restores into the JAX
+package's train state bit for bit (tests/test_torch_zero_learn.py).
 """
 
 from __future__ import annotations
@@ -145,3 +151,97 @@ def read_checkpoint(path: str) -> Any:
     """The variable tree of a flax checkpoint file."""
     with open(path, "rb") as f:
         return msgpack_restore(f.read())
+
+
+# ------------------------------------------------------------ writer
+
+_MAX_ARRAY_BYTES = 2 ** 30  # flax chunks arrays above this size
+
+
+def _sized(out: list, n: int, small: Tuple[int, int], codes: Tuple[int, ...]) -> None:
+    """The header of a str, bin, array or map of length ``n``: ``small`` =
+    (fixed-format base, its limit) or (−1, 0) when there is none; ``codes``
+    the 8-, 16- and 32-bit length formats (0 where the 8-bit one does not
+    exist)."""
+    base, limit = small
+    if base >= 0 and n <= limit:
+        out.append(struct.pack(">B", base | n))
+    elif codes[0] and n <= 0xFF:
+        out.append(struct.pack(">BB", codes[0], n))
+    elif n <= 0xFFFF:
+        out.append(struct.pack(">BH", codes[1], n))
+    elif n <= 0xFFFFFFFF:
+        out.append(struct.pack(">BI", codes[2], n))
+    else:
+        raise ValueError(f"msgpack: length {n} does not fit")
+
+
+def _uint(out: list, v: int) -> None:
+    for code, fmt, top in ((-1, "B", 0x7F), (0xCC, "B", 0xFF), (0xCD, "H", 0xFFFF),
+                           (0xCE, "I", 0xFFFFFFFF), (0xCF, "Q", 2 ** 64 - 1)):
+        if 0 <= v <= top:
+            out.append(struct.pack(">" + fmt, v) if code < 0 else struct.pack(">B" + fmt, code, v))
+            return
+    raise ValueError(f"msgpack: {v} is not a non-negative int that fits")
+
+
+def _ext(out: list, code: int, payload: bytes) -> None:
+    n = len(payload)
+    fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if n in fixed:
+        out.append(struct.pack(">B", fixed[n]))
+    else:
+        _sized(out, n, (-1, 0), (0xC7, 0xC8, 0xC9))
+    out.append(struct.pack(">b", code))
+    out.append(payload)
+
+
+def _ndarray_bytes(arr: np.ndarray) -> bytes:
+    if arr.dtype.hasobject or arr.dtype.isalignedstruct:
+        raise ValueError(f"msgpack: cannot pack arrays of dtype {arr.dtype}")
+    if arr.nbytes > _MAX_ARRAY_BYTES:
+        raise ValueError("chunked msgpack arrays (over 1 GiB) are not supported")
+    return packb((tuple(int(d) for d in arr.shape), arr.dtype.name, arr.tobytes("C")))
+
+
+def _pack(out: list, v: Any) -> None:
+    """What a checkpoint holds: maps with str keys, ndarray leaves, and the
+    ndarray extension's (shape, dtype name, bytes) payload."""
+    if isinstance(v, np.ndarray):
+        _ext(out, _EXT_NDARRAY, _ndarray_bytes(v))
+    elif isinstance(v, int) and not isinstance(v, bool):
+        _uint(out, v)
+    elif isinstance(v, str):
+        data = v.encode()
+        _sized(out, len(data), (0xA0, 31), (0xD9, 0xDA, 0xDB))
+        out.append(data)
+    elif isinstance(v, bytes):
+        _sized(out, len(v), (-1, 0), (0xC4, 0xC5, 0xC6))
+        out.append(v)
+    elif isinstance(v, tuple):
+        _sized(out, len(v), (0x90, 15), (0, 0xDC, 0xDD))
+        for item in v:
+            _pack(out, item)
+    elif isinstance(v, dict):
+        _sized(out, len(v), (0x80, 15), (0, 0xDE, 0xDF))
+        for key in sorted(v):
+            _pack(out, key)
+            _pack(out, v[key])
+    else:
+        raise TypeError(f"msgpack: cannot pack {type(v).__name__}")
+
+
+def packb(value: Any) -> bytes:
+    """``value`` (nested dicts with str keys and numpy array leaves) as
+    msgpack bytes: shortest encodings, map keys sorted, flax's ndarray
+    extension."""
+    out: list = []
+    _pack(out, value)
+    return b"".join(out)
+
+
+def write_checkpoint(path: str, tree: Any) -> None:
+    """Write a variable tree (nested dicts with numpy leaves) as a flax
+    checkpoint file."""
+    with open(path, "wb") as f:
+        f.write(packb(tree))

@@ -1,9 +1,12 @@
 """Boundaries of the PyTorch/CUDA port: it imports neither JAX, flax,
-msgpack nor the JAX package (the card's machine has none of them), its
-entry points run on the card unless told otherwise, and
+optax, msgpack nor the JAX package (the card's machine has none of them),
+its entry points run on the card unless told otherwise (no public
+function defaults its ``device`` to the CPU), and
 ``chip_smoke.py`` fails (printing no result) without a card or without the
 rest of the repository."""
 
+import importlib
+import inspect
 import pathlib
 import re
 import shutil
@@ -24,6 +27,13 @@ def _port_sources():
     return sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
+def _port_modules():
+    return [
+        ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+        for p in sorted(PACKAGE.rglob("*.py"))
+    ]
+
+
 def test_port_sources_import_no_jax():
     offenders = [str(p) for p in _port_sources() if FORBIDDEN.search(p.read_text())]
     assert offenders == []
@@ -31,18 +41,16 @@ def test_port_sources_import_no_jax():
 
 def test_port_imports_with_jax_blocked():
     """Every module of the port, the checkpoint reader included, imports in
-    a process where importing jax, flax, msgpack or ipp_rl_tpu raises."""
-    modules = [
-        ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
-        for p in sorted(PACKAGE.rglob("*.py"))
-    ]
+    a process where importing jax, flax, optax, msgpack or ipp_rl_tpu
+    raises."""
+    modules = _port_modules()
     code = (
         "import sys\n"
-        "for m in ('jax', 'flax', 'msgpack', 'ipp_rl_tpu'): sys.modules[m] = None\n"
+        "for m in ('jax', 'flax', 'optax', 'msgpack', 'ipp_rl_tpu'): sys.modules[m] = None\n"
         "import importlib\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
-        "assert not any(k in ('jax', 'flax', 'msgpack') "
-        "or k.startswith(('jax.', 'flax.', 'msgpack.', 'ipp_rl_tpu.')) "
+        "assert not any(k in ('jax', 'flax', 'optax', 'msgpack') "
+        "or k.startswith(('jax.', 'flax.', 'optax.', 'msgpack.', 'ipp_rl_tpu.')) "
         "for k in sys.modules if sys.modules[k] is not None)\n"
         "from ipp_rl_tpu_torch.serialization import read_checkpoint\n"
         "tree = read_checkpoint('runs/zero_canon_r5_best/checkpoints/"
@@ -81,6 +89,35 @@ def test_entry_points_default_to_cuda(small_cfg):
     planner = ZeroPlanner(world, MissionConfig(type="mcts_zero", hyper_params=hp),
                           predict_fn(net), net.state_dict())
     assert planner.world.device == torch.device("cpu")
+
+
+def test_no_public_device_default_is_the_cpu():
+    """Every public function and method of the port that takes ``device``
+    defaults it to the card ("cuda", or None for the caller's own)."""
+    checked, offenders = [], []
+    for name in _port_modules():
+        mod = importlib.import_module(name)
+        for attr, obj in vars(mod).items():
+            if attr.startswith("_") or getattr(obj, "__module__", None) != mod.__name__:
+                continue
+            if inspect.isfunction(obj):
+                fns = [(attr, obj)]
+            elif inspect.isclass(obj):
+                fns = [(f"{attr}.{m}", f) for m, f in vars(obj).items()
+                       if inspect.isfunction(f) and (not m.startswith("_") or m == "__init__")]
+            else:
+                continue
+            for label, fn in fns:
+                param = inspect.signature(fn).parameters.get("device")
+                if param is None or param.default is inspect.Parameter.empty:
+                    continue
+                checked.append(f"{name}.{label}")
+                if param.default not in ("cuda", None):
+                    offenders.append(f"{name}.{label} = {param.default!r}")
+    assert offenders == []
+    for fn in ("planners.zero.mcts.init_tree", "ops.kalman.prepare_batched_sweep",
+               "planners.zero.train.init_train_state", "env.world.IPPWorld.__init__"):
+        assert f"ipp_rl_tpu_torch.{fn}" in checked
 
 
 def test_chip_smoke_fails_without_a_card():
