@@ -86,6 +86,34 @@ Phases, each of which fails the run on a failed check (none is caught):
    simulations) and one arena batch, with the kernels and with their plain
    versions from the same generator seeds, under deterministic
    algorithms: trajectories and arena totals identical.
+8. the static baselines through ``run``: example.yaml, float32, B =
+   ``STATIC_B`` = 4096, the lawnmower (step 5), the spiral (100
+   waypoints), random discrete and random continuous, each for its whole
+   budget-truncated mission, the launch counters set to 0 before each and
+   read after: ``spd_inverse`` once per step (the ``step_position``
+   commit), nothing else.  Checks: budgets never negative, waypoints in
+   the box, uncertainty falls.  Times: ms per step;
+9. CMA-ES through ``CMAESPlanner.run``: temperature_cmaes.yaml mission 0
+   at full width (λ = 12, 20 generations, horizon 5, σ0 = 1, float32), B =
+   ``CMAES_B`` = 1024, ``CMAES_STEPS`` = 3 replan steps, the counters set
+   to 0 before and read after: per replan ``edge_factor_gain`` generations
+   × horizon + horizon (the fitness's per-waypoint edge updates, the
+   greedy plan's included), ``spd_trace_product`` two per greedy horizon
+   step, ``spd_inverse`` horizon + 1 (the greedy horizon's hypothetical
+   commits and the step's commit), ``spd_inverse_factor`` none; one more
+   replan and commit split by CUDA events into greedy init, fitness, CMA
+   update (eigh, sort, rank updates) and commit; peak memory; one fitness
+   call at the generation's B·λ members and one at the greedy plan's B,
+   each on the host clock with and without a synchronise and once under
+   ``torch.profiler`` (device kernels, host synchronisations, the
+   device's busy time and idle share of the call).  Then at B =
+   ``CMAES_AGREE_B`` = 32 for 2 replans, with the kernels and with their
+   plain versions, from one state, noise and generator: waypoints, budgets
+   and metric curves identical.  Phase 2 also holds the kernels at this
+   slice's shapes: ``spd_inverse`` on a ``step_position`` commit's S at B =
+   4096 (padded rows, rf = 1 and 2), ``edge_factor_gain`` on the fitness's
+   inputs at B·λ = 12288 and 12289 (per-sample R, (B·λ, N) mask) and
+   ``spd_trace_product`` on the greedy init's sweep at B = 1024.
 
 Float32 products run in full float32: TF32 is switched off for matmuls
 and cuDNN.  The last stdout line is ``{"ok": true, "device": {...}}``;
@@ -113,7 +141,16 @@ from ipp_rl_tpu_torch.env.world import IPPWorld
 from ipp_rl_tpu_torch.ops import kernels, smallchol
 from ipp_rl_tpu_torch.ops.rewards import adaptive_mask
 from ipp_rl_tpu_torch.models.networks import plane_channels
-from ipp_rl_tpu_torch.planners import GreedyPlanner
+from ipp_rl_tpu_torch.planners import (
+    CMAESPlanner,
+    GreedyPlanner,
+    LawnmowerPlanner,
+    RandomContinuousPlanner,
+    RandomDiscretePlanner,
+    SpiralPlanner,
+    cmaes,
+)
+from ipp_rl_tpu_torch.planners.base import sweep_rewards
 from ipp_rl_tpu_torch.planners.zero import ZeroPlanner
 from ipp_rl_tpu_torch.planners.zero.arena import Arena
 from ipp_rl_tpu_torch.planners.zero.features import init_history, push_history
@@ -146,11 +183,15 @@ ARENA_GAMES, ARENA_STEPS = 16, 4
 # N steps at a fixed LR (the recipe's peak) on one fixed batch of the
 # phase's data must bring its loss's excess over the policy targets'
 # entropy (the cross-entropy's floor) below this share of the first step's.
-# Self-play on the card is not bitwise repeatable, so the batch differs
-# from run to run; the loss falls in steps after plateaus, so after 100
-# steps the share spread over 0.40-0.86 in four runs, and 200 are taken
+# The loss falls in steps after plateaus: after 100 steps the share spread
+# over 0.40-0.86 in four runs whose batches differed (before the learner's
+# train steps ran under cuDNN's deterministic algorithms), so 200 are taken
 LOSS_STEPS, LOSS_LR, LOSS_RATIO = 200, 5e-3, 0.8
 TRAIN_AGREE_ENVS, TRAIN_AGREE_STEPS, TRAIN_AGREE_SIMS = 32, 4, 32
+# phases 8 and 9: the static baselines and CMA-ES
+STATIC_B = 4096
+CMAES_B, CMAES_STEPS = 1024, 3
+CMAES_AGREE_B, CMAES_AGREE_STEPS = 32, 2
 CHECKPOINT = ROOT / "runs" / "zero_canon_r5_best" / "checkpoints" / "shared_net.trained_model.ckpt"
 # the committed checkpoint's hyper-parameters (tests/test_learning_artifact.py)
 CHECKPOINT_HP = dict(num_channels=64, num_encoder_res_blocks=6, num_global_pooling_channels=32,
@@ -414,6 +455,10 @@ def kernel_phase(gen: torch.Generator) -> list:
     })
     rows.append(inverse_factor_row(gen))
     rows.append(edge_factor_gain_row(gen))
+    continuous = continuous_shape_checks(gen)
+    for r in rows:
+        if r["name"] in continuous:
+            r["continuous_checks"] = continuous[r["name"]]
     log(f"  spd_inverse on 32 matrices (one CTA): {rows[0]['one_cta_ms']:.4f} ms device")
     for r in rows:
         log(f"  {r['name']}: kernel {r['ms']:.4f} ms device (graph), {r['call_ms']:.4f} ms "
@@ -570,6 +615,78 @@ def edge_factor_gain_row(gen: torch.Generator) -> dict:
                         "(after the symmetrisation)",
         "previous_tail": previous,
     }
+
+
+def continuous_shape_checks(gen: torch.Generator) -> dict:
+    """The kernels at the static baselines' and CMA-ES's shapes, bitwise
+    against their plain versions: ``spd_inverse`` on a ``step_position``
+    commit's S at B = STATIC_B (random waypoints over the box and the
+    altitude band: clipped FoVs with padded rows R = 1, rf = 1 and 2);
+    ``edge_factor_gain`` on the fitness's inputs at B·λ = CMAES_B · λ and
+    one more (per-sample H and R from the continuous model, the adaptive
+    mask per member); ``spd_trace_product`` on each launch of one greedy
+    sweep at B = CMAES_B (the greedy initialisation's layouts)."""
+    out = {}
+    cfg = load_config(str(CONFIG_DIR / "example.yaml"))
+    world = IPPWorld(cfg)
+
+    def waypoints(w, n):
+        env, con = w.cfg.environment, w.cfg.constraints
+        lo = torch.tensor([0.0, 0.0, con.min_altitude], device="cuda")
+        hi = torch.tensor([env.extent_x, env.extent_y, con.max_altitude], device="cuda")
+        return lo + torch.rand((n, 3), generator=gen, device="cuda") * (hi - lo)
+
+    state = world.init_state(STATIC_B, gen)
+    wp = waypoints(world, STATIC_B)
+    H, R, _, valid = world.measurement_model_at(wp)
+    check(bool((~valid).any()) and bool((wp[:, 2] > 10).any()) and bool((wp[:, 2] <= 10).any()),
+          "the commit's check lacks padded rows or one of the resolution factors")
+    A = H @ state.cov
+    S = A @ H.mT
+    S = (0.5 * (S + S.mT) + torch.diag_embed(R)).contiguous()
+    out["spd_inverse"] = compare(f"spd_inverse B={STATIC_B} (a step_position commit's S)",
+                                 kernels.spd_inverse(S), smallchol.spd_inverse(S))
+
+    tcfg = load_config(str(CONFIG_DIR / "temperature_cmaes.yaml"))
+    tworld = IPPWorld(tcfg)
+    lam = tcfg.missions[0].cma_popsize
+    tstate = tworld.init_state(CMAES_B + 1, gen)
+    scen = tcfg.scenario
+    mask = adaptive_mask(tstate.mean, torch.diagonal(tstate.cov, dim1=-2, dim2=-1),
+                         scen.value_threshold, scen.interval_factor)
+    errs = []
+    for n in (CMAES_B * lam, CMAES_B * lam + 1):
+        P = tstate.cov.repeat_interleave(lam, dim=0)[:n]
+        m = mask.repeat_interleave(lam, dim=0)[:n]
+        Hn, Rn, _, _ = tworld.measurement_model_at(waypoints(tworld, n))
+        An = Hn @ P
+        args = (An @ Hn.mT, An, Rn, torch.arange(n, device="cuda"), m)
+        for got, want, part in zip(kernels.edge_factor_gain(*args),
+                                   smallchol.edge_factor_gain(*args), ("WcT", "gain")):
+            errs.append(compare(f"edge_factor_gain B*lambda={n} per-sample R, mask ({part})",
+                                got, want))
+        del P, An, args
+    out["edge_factor_gain"] = {k: max(e[k] for e in errs) for k in errs[0]}
+
+    recorded = []
+    launch = kernels.spd_trace_product_packed
+
+    def record(S_packed, G_packed):
+        recorded.append((S_packed, G_packed))
+        return launch(S_packed, G_packed)
+
+    record.launches = 0  # the wrapper counts its launch on the name it is bound to
+    kernels.spd_trace_product_packed = record
+    try:
+        sweep_rewards(tworld, tworld.init_state(CMAES_B, gen))
+    finally:
+        kernels.spd_trace_product_packed = launch
+    errs = [compare(f"spd_trace_product greedy init {tuple(Sp.shape)}",
+                    kernels.spd_trace_product_packed(Sp, Gp),
+                    smallchol.spd_trace_product_packed(Sp, Gp)) for Sp, Gp in recorded]
+    check(len(recorded) == 2, f"{len(recorded)} trace-product launches in one sweep")
+    out["spd_trace_product"] = {k: max(e[k] for e in errs) for k in errs[0]}
+    return out
 
 
 # ------------------------------------------------------------ greedy slice
@@ -1216,6 +1333,254 @@ def training_agreement_phase(cfg) -> dict:
             "samples": samples, "launches": launches}
 
 
+# ------------------------------------------------------------ static baselines
+
+def static_phase(cfg) -> dict:
+    log(f"== static baselines: example.yaml, float32, B={STATIC_B}, whole missions")
+    world = IPPWorld(cfg)
+    env, con = cfg.environment, cfg.constraints
+    planners = {
+        "lawnmower": LawnmowerPlanner(world, MissionConfig(type="lawnmower", step_size=5.0)),
+        "spiral": SpiralPlanner(world, MissionConfig(type="spiral", num_waypoints=100)),
+        "random_discrete": RandomDiscretePlanner(world, MissionConfig(type="random_discrete")),
+        "random_continuous": RandomContinuousPlanner(
+            world, MissionConfig(type="random_continuous")),
+    }
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    out, launches = {}, {}
+    for name, planner in planners.items():
+        planner.run(STATIC_B, max_steps=1, generator=gen)  # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = planner.run(STATIC_B, generator=gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        steps = res.budgets.shape[1] - 1
+        check(counts["spd_inverse"] == steps,
+              f"{name}: spd_inverse launched {counts['spd_inverse']} times in {steps} steps")
+        check(sum(counts.values()) == steps, f"{name}: other kernels launched: {counts}")
+        check(float(res.budgets.min()) >= 0.0, f"{name}: a budget went negative")
+        wps = res.waypoints[~np.isnan(res.waypoints[..., 0])]
+        lo = np.array([0.0, 0.0, con.min_altitude])
+        hi = np.array([env.extent_x, env.extent_y, con.max_altitude])
+        check(len(wps) > 0 and bool(np.all((wps >= lo) & (wps <= hi))),
+              f"{name}: waypoints outside the box")
+        unc = res.metrics["uncertainty"].mean(axis=0)
+        check(unc[-1] < unc[0], f"{name}: the uncertainty did not fall")
+        for k in launches.keys() | counts.keys():
+            launches[k] = launches.get(k, 0) + counts[k]
+        out[name] = {"steps": steps, "ms_per_step": wall / steps * 1e3,
+                     "mean_flown_steps": float(res.num_steps.mean()),
+                     "uncertainty": [float(unc[0]), float(unc[-1])], "launches": counts}
+        log(f"  {name}: {steps} steps, {out[name]['ms_per_step']:.2f} ms per step, "
+            f"{out[name]['mean_flown_steps']:.1f} steps flown on average, mean uncertainty "
+            f"{unc[0]:.2f} -> {unc[-1]:.2f}; launches {counts}")
+    out["launches"] = launches
+    return out
+
+
+# ------------------------------------------------------------ CMA-ES
+
+def cmaes_mission(tcfg):
+    mc = tcfg.missions[0]
+    check(mc.type == "cmaes", "temperature_cmaes.yaml's first mission is not cmaes")
+    return mc
+
+
+def _busy_ms(intervals) -> float:
+    """Length of the union of (start, end) intervals in µs, in ms."""
+    busy, reach = 0.0, float("-inf")
+    for start, end in sorted(intervals):
+        if end > reach:
+            busy += end - max(start, reach)
+            reach = end
+    return busy / 1e3
+
+
+#: CUDA runtime calls with which the host waits for the device
+SYNC_CALLS = ("cudaDeviceSynchronize", "cudaStreamSynchronize", "cudaEventSynchronize",
+              "cudaMemcpy")
+
+
+def fitness_profile(planner, state, gen, repeats: int = 5) -> dict:
+    """Where one fitness call's time goes: the generation's B·λ members
+    (a first generation's draws around the greedy plan) and the greedy
+    plan's B.  Per case, ``repeats`` calls on the host clock, each timed
+    to its return (the host's enqueue) and to a synchronise after it (its
+    wall), then one call under ``torch.profiler``: the device's kernels
+    and copies, the host's kernel launches and synchronisations, and the
+    union of the device's intervals, whose share of the unprofiled median
+    wall is the device's busy share (1 − idle share)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    world, cfg = planner.world, planner.cfg
+    H, lam, B = planner.horizon, planner.popsize, state.batch_size
+    con, env = cfg.constraints, cfg.environment
+    lower = torch.tensor([0.0, 0.0, con.min_altitude], device="cuda").repeat(H)
+    upper = torch.tensor([env.extent_x, env.extent_y, con.max_altitude], device="cuda").repeat(H)
+    actions, _ = cmaes.greedy_search_horizon(world, state, H)
+    x0 = world.actions_xyz[actions].reshape(B, 3 * H)
+    scales = torch.as_tensor(planner.sigma_scales, device="cuda")
+    z = torch.randn((B, lam, 3 * H), generator=gen, device="cuda")
+    members = torch.clamp(x0[:, None, :] + z * scales, lower, upper)  # C = diag(scales²), σ = 1
+
+    def call(x):
+        return planner.trajectory_loss(x, state.cov, state.mean, state.pos, state.budget)
+
+    out = {}
+    for case, x in (("generation", members), ("greedy_plan", x0[:, None, :])):
+        enqueue, wall = [], []
+        for _ in range(repeats):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call(x)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            enqueue.append((t1 - t0) * 1e3)
+            wall.append((time.perf_counter() - t0) * 1e3)
+        row = {"members": x.shape[0] * x.shape[1], "enqueue_ms": enqueue, "wall_ms": wall}
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                call(x)
+                torch.cuda.synchronize()
+            events = prof.events()
+            device = [e for e in events if e.device_type == DeviceType.CUDA]
+            host = [e.name for e in events if e.device_type == DeviceType.CPU]
+            syncs = sum(1 for n in host if n in SYNC_CALLS) - ("cudaDeviceSynchronize" in host)
+            busy = _busy_ms([(e.time_range.start, e.time_range.end) for e in device])
+            row.update({
+                "device_kernels": sum(1 for e in device if "memcpy" not in e.name.lower()
+                                      and "memset" not in e.name.lower()),
+                "device_copies": sum(1 for e in device if "memcpy" in e.name.lower()
+                                     or "memset" in e.name.lower()),
+                "host_launches": sum(1 for n in host if "LaunchKernel" in n),
+                "host_syncs": syncs,  # less our own synchronise after the call
+                "device_busy_ms": busy if device else None,
+                "device_busy_share": busy / float(np.median(wall)) if device else None,
+            })
+        except Exception as e:  # the profiler is a measurement, not a check
+            row["profile_error"] = f"{type(e).__name__}: {e}"
+        out[case] = row
+        share = row.get("device_busy_share")
+        log(f"  fitness at {row['members']} members: wall {np.median(wall):.2f} ms, enqueue "
+            f"{np.median(enqueue):.2f} ms (medians of {repeats}); profiled: "
+            + (f"{row['device_kernels']} kernels + {row['device_copies']} copies, "
+               f"{row['host_launches']} host launches, {row['host_syncs']} host syncs, "
+               f"device busy {row['device_busy_ms']:.2f} ms = {share:.3f} of the wall"
+               if share is not None else "no device events (" + row.get("profile_error", "")
+               + ")"))
+    return out
+
+
+def cmaes_phase(tcfg) -> dict:
+    mc = cmaes_mission(tcfg)
+    H, G, lam = mc.episode_horizon, mc.cma_maxiter, mc.cma_popsize
+    log(f"== CMA-ES: temperature_cmaes.yaml mission 0, lambda {lam}, {G} generations, "
+        f"horizon {H}, sigma0 {mc.cma_sigma}, float32, B={CMAES_B}, {CMAES_STEPS} replan steps")
+    world = IPPWorld(tcfg)
+    planner = CMAESPlanner(world, mc)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    warm = CMAESPlanner(world, dataclasses.replace(mc, cma_maxiter=1))
+    warm.run(CMAES_B, max_steps=1, generator=gen)  # warm-up: cuBLAS, cuSOLVER, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = planner.run(CMAES_B, max_steps=CMAES_STEPS, generator=gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    want = {"edge_factor_gain": CMAES_STEPS * (G * H + H),
+            "spd_trace_product": CMAES_STEPS * H * 2,
+            "spd_inverse": CMAES_STEPS * (H + 1), "spd_inverse_factor": 0}
+    log(f"  launches in the run: {launches} (want {want})")
+    check(launches == want, "CMA-ES launch counts differ from the stated ones")
+    unc = res.metrics["uncertainty"].mean(axis=0)
+    check(res.waypoints.shape == (CMAES_B, CMAES_STEPS, 3), f"waypoints {res.waypoints.shape}")
+    for k in ("rmse", "mll", "uncertainty", "uncertainty_difference"):
+        check(bool(np.isfinite(res.metrics[k]).all()), f"metric {k} not finite")
+    check(bool(np.all(np.diff(unc) < 0)), "uncertainty does not fall step over step")
+    check(float(res.budgets.min()) >= 0.0, "a budget went negative")
+    env, con = tcfg.environment, tcfg.constraints
+    wps = res.waypoints[~np.isnan(res.waypoints[..., 0])]
+    check(len(wps) > 0 and bool(np.all((wps >= [0.0, 0.0, con.min_altitude])
+                                       & (wps <= [env.extent_x, env.extent_y, con.max_altitude]))),
+          "CMA-ES waypoints outside the box")
+    log(f"  mean uncertainty per step: {np.array2string(unc, precision=3)}")
+
+    # one more replan and its commit, split by CUDA events
+    state = res.final_state
+    timer = PhaseTimer()
+    parts = ((cmaes, "greedy_search_horizon", "greedy_init"), (cmaes, "cma_es_minimize", "cma"),
+             (planner, "trajectory_loss", "fitness"), (planner, "eigh", "eigh"),
+             (planner, "replan_batch", "replan"), (world, "step_position", "commit"))
+    saved = [(obj, attr, vars(obj).get(attr)) for obj, attr, _ in parts]
+    for obj, attr, part in parts:
+        timer.wrap(obj, attr, part)
+    try:
+        wps_next, valid = planner.replan_batch(state, generator=gen)
+        world.step_position(state.replace(active=state.active & valid), wps_next[:, 0],
+                            generator=gen)
+        fitness = timer.calls_ms("fitness")  # G inside CMA-ES, then the greedy plan's
+        split = timer.ms()
+    finally:
+        for obj, attr, own in saved:  # a module's or instance's own, else the class's
+            if own is None:
+                delattr(obj, attr)
+            else:
+                setattr(obj, attr, own)
+    split["cma_update"] = split["cma"] - sum(fitness[:-1])
+    split["other"] = split["replan"] - split["greedy_init"] - split["cma"] - fitness[-1]
+    log("  one replan by CUDA events: " + ", ".join(f"{k} {v:.1f} ms" for k, v in split.items())
+        + f"; {len(fitness)} fitness calls, {np.mean(fitness):.2f} ms each")
+    fit_profile = fitness_profile(planner, state, gen)
+    out = {
+        "batch": CMAES_B, "steps": CMAES_STEPS, "popsize": lam, "generations": G, "horizon": H,
+        "run_wall_s": wall, "ms_per_step": wall / CMAES_STEPS * 1e3,
+        "ms_per_mission_replan": wall / (CMAES_B * CMAES_STEPS) * 1e3,
+        "peak_mem_gb": peak, "mean_uncertainty": unc.tolist(), "launches": launches,
+        "replan_split_ms": split, "fitness_call_ms": fitness, "fitness_profile": fit_profile,
+    }
+    log(f"  run: {out['ms_per_step']:.1f} ms per replan step, "
+        f"{out['ms_per_mission_replan']:.4f} ms per mission-replan; peak {peak:.2f} GB")
+    return out
+
+
+def cmaes_agreement_phase(tcfg) -> dict:
+    log(f"== kernels vs plain versions on CMA-ES: B={CMAES_AGREE_B}, {CMAES_AGREE_STEPS} replans")
+    world = IPPWorld(tcfg)
+    planner = CMAESPlanner(world, cmaes_mission(tcfg))
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    state0 = world.init_state(CMAES_AGREE_B, gen)
+    noise = torch.randn((CMAES_AGREE_STEPS, CMAES_AGREE_B, world.m_max_cont), generator=gen,
+                        device="cuda")
+
+    def run():
+        return planner.run(CMAES_AGREE_B, CMAES_AGREE_STEPS, init_state=state0, noise=noise,
+                           generator=torch.Generator(device="cuda").manual_seed(14))
+
+    kernels.reset_launch_counts()
+    with_kernels = run()
+    launches = launch_counts()
+    with plain_versions():
+        plain = run()
+    check(launch_counts() == launches, "a kernel launched under plain_versions()")
+    for name in ("spd_inverse", "spd_trace_product", "edge_factor_gain"):
+        check(launches[name] > 0, f"{name} was not launched in the CMA-ES agreement run")
+    check(np.array_equal(with_kernels.waypoints, plain.waypoints, equal_nan=True),
+          "CMA-ES waypoints differ between kernels and plain versions")
+    check(np.array_equal(with_kernels.budgets, plain.budgets), "budgets differ")
+    for k, v in plain.metrics.items():
+        check(np.array_equal(with_kernels.metrics[k], v, equal_nan=True), f"metric {k} differs")
+    log(f"  waypoints, budgets and metric curves identical; launches with kernels {launches}")
+    return {"batch": CMAES_AGREE_B, "steps": CMAES_AGREE_STEPS, "identical": True,
+            "launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs an NVIDIA card",
@@ -1223,6 +1588,8 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # temperature_cmaes.yaml's ground truth is the repository's dataset
+    os.environ.setdefault("DATASETS_DIR", str(ROOT / "datasets"))
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     log(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
@@ -1263,13 +1630,21 @@ def main() -> int:
     zero_agreement = timed("zero_agreement", zero_agreement_phase, cfg)
     training = timed("training", training_phase, cfg)
     training_agreement = timed("training_agreement", training_agreement_phase, cfg)
+    static = timed("static", static_phase, cfg)
+    tcfg = load_config(str(CONFIG_DIR / "temperature_cmaes.yaml"))
+    cmaes_run = timed("cmaes", cmaes_phase, tcfg)
+    cmaes_agreement = timed("cmaes_agreement", cmaes_agreement_phase, tcfg)
+    new_s = phase_s["static"] + phase_s["cmaes"] + phase_s["cmaes_agreement"]
     log(f"phase seconds: build {build_s:.1f}, " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
         + f"; training: learn {training['learn_wall_s']:.1f}, fixed-batch check "
-        f"{training['loss_check_s']:.1f}, arena gate {training['arena_wall_s']:.1f}")
+        f"{training['loss_check_s']:.1f}, arena gate {training['arena_wall_s']:.1f}; "
+        f"static + cmaes + cmaes_agreement {new_s:.1f} (allowance 60)")
     for r in rows:  # over the main paths, each counted from 0
         r["launches_by_path"] = {"greedy": greedy["launches"][r["name"]],
                                  "zero": zero["launches"][r["name"]],
-                                 "train": training["launches"][r["name"]]}
+                                 "train": training["launches"][r["name"]],
+                                 "static": static["launches"][r["name"]],
+                                 "cmaes": cmaes_run["launches"][r["name"]]}
         r["launches"] = sum(r["launches_by_path"].values())
 
     out_dir = ROOT / "chiprun_out"
@@ -1279,7 +1654,8 @@ def main() -> int:
         "cuda": torch.version.cuda, "build_s": build_s, "phase_s": phase_s, "kernels": rows,
         "greedy": greedy, "agreement": agreement, "zero": zero,
         "zero_agreement": zero_agreement, "training": training,
-        "training_agreement": training_agreement,
+        "training_agreement": training_agreement, "static": static, "cmaes": cmaes_run,
+        "cmaes_agreement": cmaes_agreement,
     }, indent=1))
 
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",

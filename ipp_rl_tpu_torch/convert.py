@@ -6,7 +6,8 @@ What crosses:
     ground_truth, active, step), either as a mapping or as any object
     with those attributes (the JAX package's ``BeliefState`` qualifies —
     this module imports nothing from it);
-  * per-step measurement noise (T, B, M);
+  * random draws: per-step measurement noise (T, B, M), and the
+    baselines' and CMA-ES's draws (``draws_from_arrays``);
   * the policy-value network's weights: a flax variable tree (nested
     dicts of numpy arrays, as ``serialization.read_checkpoint`` or flax
     itself gives it) becomes the port's ``state_dict``, and back
@@ -19,7 +20,7 @@ compute the same thing from the same draws and weights
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -58,14 +59,31 @@ def belief_state_from_arrays(
     )
 
 
+def draws_from_arrays(
+    draws: Any, shape: Sequence[Optional[int]], device: str | torch.device = "cuda",
+    dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Random draws made on the JAX side, on the port's device in
+    ``dtype``, checked against ``shape`` (None: an axis of any length).
+    The draws the planners take:
+
+      * measurement noise (T, B, M) (``noise_from_arrays``);
+      * the random continuous baseline's uniforms (B, T, 3);
+      * the random discrete baseline's Gumbel draws (T, B, A);
+      * CMA-ES's normals (T, B, generations, λ, D) for ``run``, one step's
+        (B, generations, λ, D) for ``replan_batch``."""
+    arr = np.array(draws)
+    if arr.ndim != len(shape) or any(n is not None and n != m for n, m in zip(shape, arr.shape)):
+        raise ValueError(f"draws must have shape {tuple(shape)} (None: any length), "
+                         f"got {arr.shape}")
+    return torch.as_tensor(arr, device=resolve_device(device)).to(dtype)
+
+
 def noise_from_arrays(
     noise: Any, device: str | torch.device = "cuda", dtype: torch.dtype = torch.float32
 ) -> torch.Tensor:
     """(T, B, M) per-step measurement noise on the port's device."""
-    arr = np.array(noise)
-    if arr.ndim != 3:
-        raise ValueError(f"noise must be (T, B, M), got shape {arr.shape}")
-    return torch.as_tensor(arr, device=resolve_device(device)).to(dtype)
+    return draws_from_arrays(noise, (None, None, None), device, dtype)
 
 
 def _leaf(module: str, name: str, value: np.ndarray) -> tuple:

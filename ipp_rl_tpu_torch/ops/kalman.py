@@ -32,7 +32,12 @@ import torch
 
 from ipp_rl_tpu_torch.device import resolve_device
 from ipp_rl_tpu_torch.ops import kernels
-from ipp_rl_tpu_torch.ops.smallchol import packed_index, packed_size, spd_cholesky_dense
+from ipp_rl_tpu_torch.ops.smallchol import (
+    packed_index,
+    packed_size,
+    small_mm,
+    spd_cholesky_dense,
+)
 
 
 def _eye_like(S: torch.Tensor) -> torch.Tensor:
@@ -72,7 +77,7 @@ def kf_gain_factor_t(
     if jitter:
         S = S + jitter * _eye_like(S)
     S_inv, U = kernels.spd_inverse_factor(S.contiguous())  # U lower, U·Uᵀ = S⁻¹
-    return U.mT @ A, S_inv
+    return small_mm(U.mT, A), S_inv
 
 
 def kf_edge_factor_gain(
@@ -95,6 +100,24 @@ def kf_edge_factor_gain(
     A = H @ P  # (B, M, N) — P is symmetric for every caller
     S_raw = A @ H.mT
     return kernels.edge_factor_gain(S_raw, A, R_table, a, diag_mask, round_bf16)
+
+
+def kf_edge_factor_gain_per_sample(
+    P: torch.Tensor,
+    H: torch.Tensor,
+    R_diag: torch.Tensor,
+    diag_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`kf_edge_factor_gain` for measurement models built per sample:
+    H (B, M, N) and R_diag (B, M) against P (B, N, N), the mask (N,) or
+    (B, N).  Returns (Wcᵀ (B, M, N), gain (B,)), the algebra of
+    :func:`kf_gain_factor_t` followed by the masked trace: R_diag is the
+    kernel's R table and sample b reads its row b."""
+    A = H @ P
+    S_raw = A @ H.mT
+    a = torch.arange(H.shape[0], device=H.device)
+    return kernels.edge_factor_gain(S_raw, A, R_diag.contiguous(), a,
+                                    None if diag_mask is None else diag_mask.contiguous())
 
 
 def kf_update(

@@ -158,15 +158,36 @@ def pack_lower(S: torch.Tensor) -> torch.Tensor:
     return S[..., i, j]
 
 
-def spd_cholesky_dense(S: torch.Tensor) -> torch.Tensor:
-    """Dense (..., M, M) lower Cholesky via the unrolled recurrence."""
-    M = S.shape[-1]
-    L = cholesky_ll(S)
-    zero = torch.zeros_like(S[..., 0, 0])
+def _dense_lower(L: list, M: int) -> torch.Tensor:
+    """(..., M, M) lower-triangular matrix of the unrolled entries L[i][j],
+    j <= i, zeros above."""
+    zero = torch.zeros_like(L[0][0])
     rows = [
         torch.stack([L[i][j] if j <= i else zero for j in range(M)], dim=-1)
         for i in range(M)
     ]
+    return torch.stack(rows, dim=-2)
+
+
+def spd_cholesky_dense(S: torch.Tensor) -> torch.Tensor:
+    """Dense (..., M, M) lower Cholesky via the unrolled recurrence."""
+    return _dense_lower(cholesky_ll(S), S.shape[-1])
+
+
+def small_mm(Sm: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """(…, M, M) @ (…, M, N) in the JAX package's ``_small_mm`` order
+    (ipp_rl_tpu/ops/kalman.py:113-126): row m is Sm[m,0]·X[0], then
+    + Sm[m,k]·X[k] for k = 1..M−1, zero terms kept.  The edge update's
+    Wcᵀ = Uᵀ·A (here and in ``ops/kalman.kf_gain_factor_t``) and the
+    kernel ``edge_factor_gain`` take this order."""
+    M = X.shape[-2]
+    rows = []
+    for m in range(M):
+        acc = None
+        for k in range(M):
+            t = Sm[..., m, k, None] * X[..., k, :]
+            acc = t if acc is None else acc + t
+        rows.append(acc)
     return torch.stack(rows, dim=-2)
 
 
@@ -228,16 +249,8 @@ def edge_factor_gain(
     M = A.shape[-2]
     S = 0.5 * (S_raw + S_raw.mT) + torch.diag_embed(R_table[a])
     Li = _invert_lower(cholesky_ll(S), M)
-    U = _cholesky(lambda i, j: _inverse_entry(Li, M, i, j), M)
-    zero = torch.zeros_like(U[0][0])
-    rows = []
-    for m in range(M):
-        acc = None
-        for k in range(M):
-            t = (U[k][m] if k >= m else zero)[..., None] * A[..., k, :]
-            acc = t if acc is None else acc + t
-        rows.append(acc)
-    WcT = torch.stack(rows, dim=-2)
+    U = _dense_lower(_cholesky(lambda i, j: _inverse_entry(Li, M, i, j), M), M)
+    WcT = small_mm(U.mT, A)
     if round_bf16:
         WcT = WcT.to(torch.bfloat16).to(A.dtype)
     sq = None

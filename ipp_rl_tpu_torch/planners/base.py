@@ -11,14 +11,14 @@ the end of the run.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ipp_rl_tpu_torch.config.schema import Config, MissionConfig
 from ipp_rl_tpu_torch.env.world import BeliefState, IPPWorld
-from ipp_rl_tpu_torch.ops.geometry import travel_costs
+from ipp_rl_tpu_torch.ops.geometry import euclidean_distances, travel_costs
 from ipp_rl_tpu_torch.ops.kalman import kf_sweep_gains_batched
 from ipp_rl_tpu_torch.ops.rewards import adaptive_mask, reward_from_gain
 
@@ -48,10 +48,22 @@ def sweep_rewards(world: IPPWorld, state: BeliefState, jitter: float = 0.0):
     return reward_from_gain(gains, costs), costs
 
 
-def feasible_mask(budget: torch.Tensor, costs: torch.Tensor) -> torch.Tensor:
-    """(B, A) feasibility: 0 < cost ≤ budget (reference
-    planning/common/actions.py:44-66)."""
-    return (costs > 0) & (costs <= budget[:, None])
+def feasible_mask(
+    budget: torch.Tensor,
+    costs: torch.Tensor,
+    world: Optional[IPPWorld] = None,
+    pos: Optional[torch.Tensor] = None,
+    max_distance: Optional[float] = None,
+) -> torch.Tensor:
+    """(B, A) feasibility: 0 < cost ≤ budget, and with ``max_distance``
+    (which needs the world and the positions pos (B, 3)) closer than it
+    (reference planning/common/actions.py:44-66,
+    planning/mcts_zero/mcts.py:148-158)."""
+    ok = (costs > 0) & (costs <= budget[:, None])
+    if max_distance is not None:
+        dist = euclidean_distances(world.actions_xyz[None, :, :], pos[:, None, :])
+        ok = ok & (dist < max_distance)
+    return ok
 
 
 @dataclass
@@ -81,9 +93,11 @@ class Planner:
         self.cfg: Config = world.cfg
 
     def plan(
-        self, state: BeliefState, generator: Optional[torch.Generator], step: int
+        self, state: BeliefState, generator: Optional[torch.Generator], step: int,
+        draws: Any = None,
     ) -> torch.Tensor:
-        """Return (B,) lattice action indices for the next measurement."""
+        """Return (B,) lattice action indices for the next measurement;
+        a random planner takes its draws from ``draws`` when given."""
         raise NotImplementedError
 
     def max_steps(self) -> int:
@@ -97,23 +111,26 @@ class Planner:
         batch_size: int,
         max_steps: Optional[int] = None,
         init_state: Optional[BeliefState] = None,
+        think_time_per_step: float = 0.0,
         generator: Optional[torch.Generator] = None,
         noise: Optional[torch.Tensor] = None,
+        draws: Optional[Sequence[Any]] = None,
     ) -> MissionResult:
         """Execute the batched mission loop and collect metric histories.
 
-        Draws come from ``generator`` (on the world's device; None uses
-        torch's default), except the measurement noise when ``noise``
-        (T, B, M) is given."""
+        ``think_time_per_step`` is charged against the budget of every
+        moving mission when the config counts effective mission time
+        (reference planning/greedy_mission.py:105-106).  Draws come from
+        ``generator`` (on the world's device; None uses torch's default),
+        except the measurement noise when ``noise`` (T, B, M) is given and
+        the planner's own when ``draws`` (one entry per step) are."""
         world = self.world
         T = max_steps if max_steps is not None else self.max_steps()
+        think = think_time_per_step if self.cfg.evaluation.use_effective_mission_time else 0.0
         state = init_state if init_state is not None else world.init_state(batch_size, generator)
-        B = state.batch_size
-        budgets = [state.budget]
-        metrics_h = [world.evaluate(state)]
-        wps, actives, flight = [], [], []
+        history = MissionHistory(world, state)
         for t in range(T):
-            action = self.plan(state, generator, t)
+            action = self.plan(state, generator, t, None if draws is None else draws[t])
             cost = travel_costs(
                 world.actions_xyz[action], state.pos, self.cfg.uav.max_v, self.cfg.uav.max_a
             )
@@ -124,22 +141,52 @@ class Planner:
             state = world.step_index(
                 state, action, None if noise is None else noise[t], generator
             )
-            metrics_h.append(world.evaluate(state))
-            wps.append(torch.where(can_move[:, None], world.actions_xyz[action], float("nan")))
-            budgets.append(state.budget)
-            actives.append(can_move)
-            flight.append(torch.where(can_move, cost, 0.0))
+            state = charge_think_time(state, can_move, think)
+            history.add(state, world.actions_xyz[action], can_move, cost)
+        return history.result(state)
 
+
+def charge_think_time(state: BeliefState, moved: torch.Tensor, think: float) -> BeliefState:
+    """The planning time of a replan charged against the budget of the
+    missions that moved ("effective mission time")."""
+    if not think:
+        return state
+    return state.replace(budget=torch.where(moved, state.budget - think, state.budget))
+
+
+class MissionHistory:
+    """The per-step record of a mission loop, on the device until
+    :meth:`result` moves it to the host once."""
+
+    def __init__(self, world: IPPWorld, state: BeliefState):
+        self.world = world
+        self.B = state.batch_size
+        self.budgets = [state.budget]
+        self.metrics = [world.evaluate(state)]
+        self.wps, self.actives, self.flight = [], [], []
+
+    def add(self, state: BeliefState, waypoint: torch.Tensor, moved: torch.Tensor,
+            cost: torch.Tensor) -> None:
+        """One step: the state after it, the waypoints (B, 3) taken by the
+        missions that ``moved`` and their flight costs."""
+        self.metrics.append(self.world.evaluate(state))
+        self.wps.append(torch.where(moved[:, None], waypoint, float("nan")))
+        self.budgets.append(state.budget)
+        self.actives.append(moved)
+        self.flight.append(torch.where(moved, cost, 0.0))
+
+    def result(self, final_state: BeliefState) -> MissionResult:
         def host(xs, empty_shape):
             if not xs:
                 return np.zeros(empty_shape)
             return torch.stack(xs, dim=1).cpu().numpy()
 
+        B = self.B
         return MissionResult(
-            waypoints=host(wps, (B, 0, 3)),
-            metrics={k: host([m[k] for m in metrics_h], None) for k in metrics_h[0]},
-            budgets=host(budgets, None),
-            num_steps=host(actives, (B, 0)).sum(axis=1),
-            flight_times=host(flight, (B, 0)),
-            final_state=state,
+            waypoints=host(self.wps, (B, 0, 3)),
+            metrics={k: host([m[k] for m in self.metrics], None) for k in self.metrics[0]},
+            budgets=host(self.budgets, None),
+            num_steps=host(self.actives, (B, 0)).sum(axis=1),
+            flight_times=host(self.flight, (B, 0)),
+            final_state=final_state,
         )

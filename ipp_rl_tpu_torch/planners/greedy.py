@@ -22,7 +22,8 @@ class GreedyPlanner(Planner):
     name = "greedy"
 
     def plan(
-        self, state: BeliefState, generator: Optional[torch.Generator], step: int
+        self, state: BeliefState, generator: Optional[torch.Generator], step: int,
+        draws=None,
     ) -> torch.Tensor:
         rewards, costs = sweep_rewards(self.world, state)
         ok = feasible_mask(state.budget, costs)

@@ -48,6 +48,7 @@ from ipp_rl_tpu_torch.planners.zero.train import (
     SplitTrainState,
     TrainState,
     ZeroTrainState,
+    cudnn_deterministic,
     inference_dtype,
     init_split_train_state,
     init_train_state,
@@ -137,7 +138,9 @@ class ZeroLearner:
         deploy_eval_world: Optional[IPPWorld] = None,
         deploy_gate: float = 0.0,
     ):
-        """Runs on the world's device.  ``deploy_eval_every`` > 0 runs a
+        """Runs on the world's device.  Every train step runs under cuDNN's
+        deterministic algorithms (``train.cudnn_deterministic``), so that,
+        as the JAX learner, a run repeats from its seed.  ``deploy_eval_every`` > 0 runs a
         small held-out deploy eval (fixed worlds, temperature-0 visit
         argmax) every k iterations and keeps the best snapshot at
         ``shared_net.best``; ``deploy_gate`` > 0 rolls the network back to
@@ -177,13 +180,14 @@ class ZeroLearner:
         if hp.shared_network:
             self.net, self.state = init_train_state(self.cfg, hp, self.generator, world.device,
                                                     world.dtype)
-            self.train_step = make_train_step(hp)
+            step = make_train_step(hp)
             self.predict = predict_fn(self.net, dtype=inference_dtype(hp))
         else:
             self.net, self.state = init_split_train_state(self.cfg, hp, self.generator,
                                                           world.device, world.dtype)
-            self.train_step = make_split_train_step(hp)
+            step = make_split_train_step(hp)
             self.predict = split_predict_fn(self.net, dtype=inference_dtype(hp))
+        self.train_step = cudnn_deterministic(step)
         self.mcts = ZeroMCTS(world, hp, mission_cfg.episode_horizon, self.predict)
         self.selfplay = SelfPlay(world, hp, mission_cfg.episode_horizon, self.mcts)
         buffer_cls = PrioritizedReplayBuffer if hp.use_per else ReplayBuffer

@@ -15,13 +15,17 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Sequence
 
-import numpy as np
 import torch
 
 from ipp_rl_tpu_torch.config.schema import MissionConfig
 from ipp_rl_tpu_torch.env.world import BeliefState, IPPWorld
 from ipp_rl_tpu_torch.ops.geometry import travel_costs
-from ipp_rl_tpu_torch.planners.base import MissionResult, Planner
+from ipp_rl_tpu_torch.planners.base import (
+    MissionHistory,
+    MissionResult,
+    Planner,
+    charge_think_time,
+)
 from ipp_rl_tpu_torch.planners.zero.features import (
     EpisodeHistory,
     feature_planes,
@@ -138,11 +142,8 @@ class ZeroPlanner(Planner):
         T = max_steps if max_steps is not None else self.max_steps()
         think = think_time_per_step if cfg.evaluation.use_effective_mission_time else 0.0
         state = init_state if init_state is not None else world.init_state(batch_size, generator)
-        B = state.batch_size
-        hist = init_history(cfg, hp, B, world.dtype, world.device)
-        budgets = [state.budget]
-        metrics_h = [world.evaluate(state)]
-        wps, actives, flight = [], [], []
+        hist = init_history(cfg, hp, state.batch_size, world.dtype, world.device)
+        history = MissionHistory(world, state)
         for t in range(T):
             hist = push_history(hist, state.cov, state.pos,
                                 state.budget / float(cfg.constraints.budget))
@@ -159,26 +160,6 @@ class ZeroPlanner(Planner):
             )
             state = state.replace(active=can_move)
             state = world.step_index(state, action, None if noise is None else noise[t], generator)
-            if think:
-                state = state.replace(
-                    budget=torch.where(can_move, state.budget - think, state.budget)
-                )
-            metrics_h.append(world.evaluate(state))
-            wps.append(torch.where(can_move[:, None], world.actions_xyz[action], float("nan")))
-            budgets.append(state.budget)
-            actives.append(can_move)
-            flight.append(torch.where(can_move, cost, 0.0))
-
-        def host(xs, empty_shape):
-            if not xs:
-                return np.zeros(empty_shape)
-            return torch.stack(xs, dim=1).cpu().numpy()
-
-        return MissionResult(
-            waypoints=host(wps, (B, 0, 3)),
-            metrics={k: host([m[k] for m in metrics_h], None) for k in metrics_h[0]},
-            budgets=host(budgets, None),
-            num_steps=host(actives, (B, 0)).sum(axis=1),
-            flight_times=host(flight, (B, 0)),
-            final_state=state,
-        )
+            state = charge_think_time(state, can_move, think)
+            history.add(state, world.actions_xyz[action], can_move, cost)
+        return history.result(state)

@@ -29,6 +29,7 @@ without rebuilding the module.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict, NamedTuple, Optional, Tuple, Union
 
@@ -339,6 +340,29 @@ def make_train_step(hp: MCTSZeroHyperParams):
         return state, _detached(metrics), value_l.detach()
 
     return train_step
+
+
+def cudnn_deterministic(step):
+    """``step`` run under cuDNN's deterministic algorithms, without its
+    autotuning (``torch.backends.cudnn.deterministic = True``,
+    ``benchmark = False``), the caller's settings restored after each
+    call.  cuDNN's default weight-gradient algorithms for the convolutions
+    accumulate in an order that varies from run to run, so without this two
+    train steps from the same weights and batch differ in the last bits
+    (``python3 -m ipp_rl_tpu_torch.tools.probe_determinism``); the forward
+    and the search are repeatable either way."""
+
+    @functools.wraps(step)
+    def wrapped(*args, **kw):
+        cudnn = torch.backends.cudnn
+        saved = cudnn.deterministic, cudnn.benchmark
+        cudnn.deterministic, cudnn.benchmark = True, False
+        try:
+            return step(*args, **kw)
+        finally:
+            cudnn.deterministic, cudnn.benchmark = saved
+
+    return wrapped
 
 
 def make_split_train_step(hp: MCTSZeroHyperParams):

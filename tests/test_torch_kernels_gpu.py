@@ -343,3 +343,122 @@ def test_greedy_slice_on_card_matches_cpu(cuda):
     np.testing.assert_array_equal(got.waypoints, want.waypoints)
     for k, v in want.metrics.items():
         np.testing.assert_allclose(got.metrics[k], v, rtol=1e-9, atol=1e-12)
+
+
+@pytest.fixture
+def datasets(monkeypatch):
+    """temperature_cmaes.yaml's ground truth: the repository's dataset."""
+    import pathlib
+
+    monkeypatch.setenv("DATASETS_DIR", str(pathlib.Path(__file__).resolve().parents[1]
+                                           / "datasets"))
+
+
+def _to(state, device):
+    return state.replace(**{f.name: getattr(state, f.name).to(device)
+                            for f in dataclasses.fields(state)})
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_measurement_model_at_on_card_matches_cpu(cuda, dtype):
+    """The continuous model on the card: cell indices, weights and padded
+    rows exact, R to the two exps' rounding (4 ulps)."""
+    cfg = load_config(str(CONFIG_DIR / "temperature_cmaes.yaml"))
+    gen = torch.Generator().manual_seed(0)
+    pos = torch.rand((999, 3), generator=gen, dtype=torch.float64)
+    pos = (pos * torch.tensor([34.0, 34.0, 12.0], dtype=torch.float64)
+           - torch.tensor([2.0, 2.0, -4.0], dtype=torch.float64)).to(dtype)
+    pos[:50, 2] = 10.0
+    want = IPPWorld(cfg, dtype=dtype, device="cpu").measurement_model_at(pos)
+    got = IPPWorld(cfg, dtype=dtype).measurement_model_at(pos.to(cuda))
+    for g, w in zip(got[:4:2], want[:4:2]):
+        assert torch.equal(g.cpu(), w)
+    assert torch.equal(got[3].cpu(), want[3])
+    rtol = 4 * torch.finfo(dtype).eps
+    torch.testing.assert_close(got[1].cpu(), want[1], rtol=rtol, atol=0)
+
+
+def test_step_position_commit_kernel_is_bitwise_plain(cuda):
+    """K1 on a step_position commit's innovation matrices (padded rows R = 1,
+    rf = 1 and rf = 2 positions), ragged B, bitwise."""
+    cfg = load_config(str(CONFIG_DIR / "example.yaml"))
+    world = IPPWorld(cfg)
+    B = 4097
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    state = world.init_state(B, gen)
+    wp = torch.rand((B, 3), generator=gen, device=cuda) * torch.tensor(
+        [40.0, 40.0, 10.0], device=cuda) + torch.tensor([0.0, 0.0, 5.0], device=cuda)
+    H, R, _, valid = world.measurement_model_at(wp)
+    assert bool((~valid).any()) and bool((wp[:, 2] > 10).any()) and bool((wp[:, 2] <= 10).any())
+    A = H @ state.cov
+    S = A @ H.mT
+    S = (0.5 * (S + S.mT) + torch.diag_embed(R)).contiguous()
+    assert torch.equal(kernels.spd_inverse(S), smallchol.spd_inverse(S))
+
+
+@pytest.mark.parametrize("B", [12, 12289])
+def test_per_sample_edge_update_is_bitwise_plain(cuda, datasets, B):
+    """The CMA-ES fitness's edge update: per-sample H and R from the
+    continuous model, a (B, N) mask, kernel against plain, bitwise."""
+    from ipp_rl_tpu_torch.ops import kalman
+
+    cfg = load_config(str(CONFIG_DIR / "temperature_cmaes.yaml"))
+    world = IPPWorld(cfg)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    state = world.init_state(1, gen)
+    P = state.cov.expand(B, -1, -1).contiguous()
+    wp = torch.rand((B, 3), generator=gen, device=cuda) * torch.tensor(
+        [30.0, 30.0, 6.0], device=cuda) + torch.tensor([0.0, 0.0, 8.0], device=cuda)
+    H, R, _, _ = world.measurement_model_at(wp)
+    mask = (torch.rand((B, 100), generator=gen, device=cuda) > 0.3).float()
+    got = kalman.kf_edge_factor_gain_per_sample(P, H, R, mask)
+    A = H @ P
+    want = smallchol.edge_factor_gain(A @ H.mT, A, R, torch.arange(B, device=cuda), mask)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_cmaes_replan_on_card_kernels_equal_plain(cuda, datasets):
+    """One CMA-ES replan (horizon 2, λ 4, 2 generations, B 4) through the
+    kernels and through their plain versions: the same plans."""
+    from ipp_rl_tpu_torch.planners import CMAESPlanner
+
+    cfg = load_config(str(CONFIG_DIR / "temperature_cmaes.yaml"))
+    world = IPPWorld(cfg)
+    mc = dataclasses.replace(cfg.missions[0], episode_horizon=2, cma_popsize=4, cma_maxiter=2)
+    planner = CMAESPlanner(world, mc)
+    state = world.init_state(4, torch.Generator(device=cuda).manual_seed(3))
+
+    def replan():
+        return planner.replan_batch(state, generator=torch.Generator(device=cuda).manual_seed(4))
+
+    got = replan()
+    saved = {k: getattr(kernels, k) for k in ("spd_inverse", "spd_trace_product_packed",
+                                              "edge_factor_gain")}
+    try:
+        for k in saved:
+            setattr(kernels, k, getattr(smallchol, k))
+        want = replan()
+    finally:
+        for k, fn in saved.items():
+            setattr(kernels, k, fn)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_static_baseline_on_card_matches_cpu(cuda):
+    """The lawnmower in float64 on the card against the CPU run, from one
+    state and noise."""
+    from ipp_rl_tpu_torch.planners import LawnmowerPlanner
+
+    cfg = load_config(str(CONFIG_DIR / "example.yaml"))
+    B, T = 4, 12
+    cpu_world = IPPWorld(cfg, dtype=torch.float64, device="cpu")
+    state0 = cpu_world.init_state(B, torch.Generator().manual_seed(5))
+    noise = torch.randn((T, B, cpu_world.m_max_cont), dtype=torch.float64,
+                        generator=torch.Generator().manual_seed(6))
+    mc = MissionConfig(type="lawnmower", step_size=5.0)
+    want = LawnmowerPlanner(cpu_world, mc).run(B, T, init_state=state0, noise=noise)
+    got = LawnmowerPlanner(IPPWorld(cfg, dtype=torch.float64), mc).run(
+        B, T, init_state=_to(state0, cuda), noise=noise.to(cuda))
+    np.testing.assert_array_equal(got.waypoints, want.waypoints)
+    for k, v in want.metrics.items():
+        np.testing.assert_allclose(got.metrics[k], v, rtol=1e-9, atol=1e-12)

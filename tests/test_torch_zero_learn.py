@@ -169,6 +169,29 @@ def test_learner_smoke(world, tmp_path):
 
 
 
+def test_learner_trains_under_deterministic_cudnn(world, tmp_path, monkeypatch):
+    """Every train step of ``learn`` runs under cuDNN's deterministic
+    algorithms without autotuning (on the card its default weight gradients
+    differ from run to run); the settings come back afterwards."""
+    seen, make = [], learn.make_train_step
+
+    def spied(hp):
+        step = make(hp)
+
+        def spy(*args, **kw):
+            seen.append((torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark))
+            return step(*args, **kw)
+
+        return spy
+
+    before = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    monkeypatch.setattr(learn, "make_train_step", spied)
+    lrn = learner(world, tmp_path)
+    lrn.learn(num_iterations=1, num_train_batches=2)
+    assert seen and all(s == (True, False) for s in seen)
+    assert (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark) == before
+
+
 @pytest.mark.parametrize("fused", [True, False], ids=["fused", "host_loop"])
 def test_learner_per_smoke(world, tmp_path, fused):
     """One PER learner iteration trains end to end, fused on the device or

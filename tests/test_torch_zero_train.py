@@ -331,6 +331,9 @@ def test_clip_follows_optax_not_torch(max_norm):
     max_norm too), untouched below; torch's clip_grad_norm_ divides by
     norm + 1e-6 and leaves norm = max_norm alone."""
     lin = torch.nn.Linear(2, 1).to(F64)
+    with torch.no_grad():  # from zero, p0 - p is the update exactly, whatever the RNG holds
+        for p in lin.parameters():
+            p.zero_()
     grads = [torch.tensor([[3.0, 4.0]], dtype=F64), torch.tensor([12.0], dtype=F64)]  # norm 13
     p0 = [p.detach().clone() for p in lin.parameters()]
     for p, g in zip(lin.parameters(), grads):
@@ -343,3 +346,21 @@ def test_clip_follows_optax_not_torch(max_norm):
                                                      None)[0]
     for p, before, w in zip(lin.parameters(), p0, want):
         np.testing.assert_array_equal((before - p.detach()).numpy(), np.asarray(w))
+
+
+def test_cudnn_deterministic_scopes_the_flags():
+    """A train step wrapped by ``cudnn_deterministic`` runs under cuDNN's
+    deterministic algorithms without autotuning, and the caller's settings
+    come back after each call, also when the step raises."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    try:
+        cudnn.deterministic, cudnn.benchmark = False, True
+        step = train.cudnn_deterministic(lambda x: (x, cudnn.deterministic, cudnn.benchmark))
+        assert step(3) == (3, True, False)
+        assert (cudnn.deterministic, cudnn.benchmark) == (False, True)
+        with pytest.raises(ZeroDivisionError):
+            train.cudnn_deterministic(lambda: 1 / 0)()
+        assert (cudnn.deterministic, cudnn.benchmark) == (False, True)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
