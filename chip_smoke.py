@@ -113,7 +113,41 @@ Phases, each of which fails the run on a failed check (none is caught):
    slice's shapes: ``spd_inverse`` on a ``step_position`` commit's S at B =
    4096 (padded rows, rf = 1 and 2), ``edge_factor_gain`` on the fitness's
    inputs at B·λ = 12288 and 12289 (per-sample R, (B·λ, N) mask) and
-   ``spd_trace_product`` on the greedy init's sweep at B = 1024.
+   ``spd_trace_product`` on the greedy init's sweep at B = 1024;
+10. classic MCTS through ``Planner.run``: example.yaml, float32, the
+   reference's knobs (``CLASSIC_KNOBS``: 100 simulations, horizon 5, γ 0.95,
+   c 2, k 4, α 0.75, ε 0.2 / 0.5, radius 10, no GCB), B = ``CLASSIC_B`` =
+   1024 for ``CLASSIC_STEPS`` = 2 replan steps, the counters set to 0
+   before and read after: per replan ``edge_factor_gain`` S·(Hc + H) =
+   1100 (every descent and rollout step of every row, in lockstep),
+   ``spd_trace_product`` two per sweep (2200), ``spd_inverse`` one (the
+   commit), ``spd_inverse_factor`` none; every root's visit total equals
+   the simulation count; uncertainty falls.  The run's replans and
+   commits split by CUDA events into the sweeps, the edge updates with
+   their rank-M updates, the descent's UCT and tree writes, the rollout
+   policy's rest, the backup and the commit; peak memory.  Then
+   root-parallel: W = 4 workers of 25 simulations at B = 256 (R = 1024
+   rows), one replan: launches 275 / 550 / 1, each worker's root visits
+   25 and each mission's 100, the action the best merged per-action mean;
+11. classic MCTS at B = ``CLASSIC_AGREE_B`` = 32, 16 simulations, one
+   replan and its commit with W = 1 and with W = 2 and GCB rollouts, with
+   the kernels and with their plain versions from one state, noise and
+   generator seed: the trees (``CLASSIC_TREE_FIELDS``), actions, waypoints
+   and metrics identical;
+12. the port's entry points as subprocesses with implicit training
+   refused (``IPP_ALLOW_IMPLICIT_TRAINING=0``): ``python -m
+   ipp_rl_tpu_torch.main`` on example.yaml with its four missions (the
+   mcts_zero one with the committed checkpoint's hyper-parameters and
+   directory) and spiral, random continuous, classic MCTS (phase 10's
+   knobs) and CMA-ES (λ 12, 20 generations, horizon 5) added, B = 32, 8
+   steps: exit 0, eight KPI rows, every mission's final uncertainty below
+   its prior, the pickle loads, the plots exist (``--no-plots`` where
+   matplotlib is absent), and the kernel launches it reports; then
+   ``python -m ipp_rl_tpu_torch.tools.train_zero`` at a tiny size: exit 0
+   and a three-row ``eval.json``; the two run side by side.  Outputs under
+   ``chiprun_out/entry_points/``.  Phase 2 also holds ``spd_trace_product``
+   on each launch of one classic sweep (R = 1024, float32 streams, per-row
+   masks) and ``edge_factor_gain`` on that step's edge inputs.
 
 Float32 products run in full float32: TF32 is switched off for matmuls
 and cuDNN.  The last stdout line is ``{"ok": true, "device": {...}}``;
@@ -128,6 +162,8 @@ import dataclasses
 import json
 import os
 import pathlib
+import pickle
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -142,6 +178,7 @@ from ipp_rl_tpu_torch.ops import kernels, smallchol
 from ipp_rl_tpu_torch.ops.rewards import adaptive_mask
 from ipp_rl_tpu_torch.models.networks import plane_channels
 from ipp_rl_tpu_torch.planners import (
+    ClassicMCTSPlanner,
     CMAESPlanner,
     GreedyPlanner,
     LawnmowerPlanner,
@@ -192,6 +229,15 @@ TRAIN_AGREE_ENVS, TRAIN_AGREE_STEPS, TRAIN_AGREE_SIMS = 32, 4, 32
 STATIC_B = 4096
 CMAES_B, CMAES_STEPS = 1024, 3
 CMAES_AGREE_B, CMAES_AGREE_STEPS = 32, 2
+# phases 10-12: classic MCTS with the reference's knobs (scripts/quality_parity.py:74-78)
+CLASSIC_KNOBS = dict(type="mcts", num_simulations=100, episode_horizon=5, gamma=0.95, uct_c=2.0,
+                     k=4.0, alpha=0.75, epsilon_expand=0.2, epsilon_rollout=0.5,
+                     horizontal_spacing=10.0, use_gcb_rollout=False)
+CLASSIC_B, CLASSIC_STEPS, CLASSIC_WORKERS = 1024, 2, 4
+CLASSIC_AGREE_B, CLASSIC_AGREE_SIMS = 32, 16
+ENTRY_POINTS_TIMEOUT_S = 600
+CLASSIC_TREE_FIELDS = ("parent", "action_in", "children", "num_children", "visits", "value_sum",
+                       "budget", "wc_in", "next_free")
 CHECKPOINT = ROOT / "runs" / "zero_canon_r5_best" / "checkpoints" / "shared_net.trained_model.ckpt"
 # the committed checkpoint's hyper-parameters (tests/test_learning_artifact.py)
 CHECKPOINT_HP = dict(num_channels=64, num_encoder_res_blocks=6, num_global_pooling_channels=32,
@@ -456,9 +502,12 @@ def kernel_phase(gen: torch.Generator) -> list:
     rows.append(inverse_factor_row(gen))
     rows.append(edge_factor_gain_row(gen))
     continuous = continuous_shape_checks(gen)
+    classic = classic_shape_checks(gen)
     for r in rows:
         if r["name"] in continuous:
             r["continuous_checks"] = continuous[r["name"]]
+        if r["name"] in classic:
+            r["classic_checks"] = classic[r["name"]]
     log(f"  spd_inverse on 32 matrices (one CTA): {rows[0]['one_cta_ms']:.4f} ms device")
     for r in rows:
         log(f"  {r['name']}: kernel {r['ms']:.4f} ms device (graph), {r['call_ms']:.4f} ms "
@@ -689,18 +738,57 @@ def continuous_shape_checks(gen: torch.Generator) -> dict:
     return out
 
 
+def classic_shape_checks(gen: torch.Generator) -> dict:
+    """The kernels at the classic MCTS path's own inputs, bitwise against
+    their plain versions: ``spd_trace_product`` on each launch of one sweep
+    of R = CLASSIC_B rows with float32 streams (``fast_math=False``, as the
+    classic planner sweeps) and per-row adaptive masks (a root mean after
+    three commits against its covariance), and ``edge_factor_gain`` on that
+    step's edge inputs (the world's H and R tables, the per-row masks)."""
+    cfg = load_config(str(CONFIG_DIR / "example.yaml"))
+    world = IPPWorld(cfg)
+    planner = ClassicMCTSPlanner(world, classic_mission())
+    state = world.init_state(CLASSIC_B, gen)
+    for _ in range(3):
+        a = torch.randint(0, world.num_actions, (CLASSIC_B,), generator=gen, device="cuda")
+        state = world.step_index(state, a, generator=gen)
+    dmask = planner._diag_mask(state.mean, state.cov)
+    check(bool((dmask == 0).any()) and not bool((dmask == dmask[:1]).all()),
+          "the classic checks' masks are not per-row")
+    recorded = []
+    launch = kernels.spd_trace_product_packed
+
+    def record(S_packed, G_packed):
+        recorded.append((S_packed, G_packed))
+        return launch(S_packed, G_packed)
+
+    record.launches = 0  # the wrapper counts its launch on the name it is bound to
+    kernels.spd_trace_product_packed = record
+    try:
+        planner._sweep_rewards(state.cov, planner._costs(state.pos), dmask)
+    finally:
+        kernels.spd_trace_product_packed = launch
+    check(len(recorded) == 2, f"{len(recorded)} trace-product launches in one sweep")
+    check(all(Sp.dtype == torch.float32 for Sp, _ in recorded), "the sweep's streams are not f32")
+    errs = [compare(f"spd_trace_product classic sweep R={CLASSIC_B} {tuple(Sp.shape)}",
+                    kernels.spd_trace_product_packed(Sp, Gp),
+                    smallchol.spd_trace_product_packed(Sp, Gp)) for Sp, Gp in recorded]
+    out = {"spd_trace_product": {k: max(e[k] for e in errs) for k in errs[0]}}
+    a = torch.randint(0, world.num_actions, (CLASSIC_B,), generator=gen, device="cuda")
+    H = world.H[a]
+    A = H @ state.cov
+    args = (A @ H.mT, A, world.R_diag, a, dmask)
+    errs = [compare(f"edge_factor_gain classic step R={CLASSIC_B} ({part})", got, want)
+            for got, want, part in zip(kernels.edge_factor_gain(*args),
+                                       smallchol.edge_factor_gain(*args), ("WcT", "gain"))]
+    out["edge_factor_gain"] = {k: max(e[k] for e in errs) for k in errs[0]}
+    return out
+
+
 # ------------------------------------------------------------ greedy slice
 
-KERNEL_NAMES = {  # wrapper attribute: name in the report
-    "spd_inverse": "spd_inverse",
-    "spd_inverse_factor": "spd_inverse_factor",
-    "spd_trace_product_packed": "spd_trace_product",
-    "edge_factor_gain": "edge_factor_gain",
-}
-
-
-def launch_counts() -> dict:
-    return {name: getattr(kernels, attr).launches for attr, name in KERNEL_NAMES.items()}
+KERNEL_WRAPPERS = ("spd_inverse", "spd_inverse_factor", "spd_trace_product_packed",
+                   "edge_factor_gain")
 
 
 @contextlib.contextmanager
@@ -708,8 +796,8 @@ def plain_versions():
     """Route the sweep, the commit and the edge update through the plain
     versions (for the comparison only; the port itself has no such
     switch)."""
-    saved = {attr: getattr(kernels, attr) for attr in KERNEL_NAMES}
-    for attr in KERNEL_NAMES:
+    saved = {attr: getattr(kernels, attr) for attr in KERNEL_WRAPPERS}
+    for attr in KERNEL_WRAPPERS:
         setattr(kernels, attr, getattr(smallchol, attr))
     try:
         yield
@@ -732,7 +820,7 @@ def greedy_phase(cfg) -> dict:
     res = planner.run(REPLAN_B, max_steps=REPLAN_STEPS, generator=gen)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = launch_counts()
+    launches = kernels.launch_counts()
     log(f"  launches in the run: {launches}")
     for name in ("spd_inverse", "spd_trace_product"):
         check(launches[name] > 0, f"{name} was not launched on the greedy path")
@@ -835,20 +923,36 @@ def count_calls(owner, attr: str):
 
 class PhaseTimer:
     """Device time of named phases of one replan: CUDA events recorded
-    around each call of the wrapped methods, summed after a synchronise."""
+    around each call of the wrapped methods, summed after a synchronise.
+    A call made inside a ``wrap_scope`` part is filed as ``<part>/<phase>``."""
 
     def __init__(self):
         self.events = {}
+        self.scope = None
+
+    def wrap_scope(self, obj, attr: str, scope: str) -> None:
+        fn = getattr(obj, attr)
+
+        def scoped(*args, **kw):
+            self.scope = scope
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.scope = None
+
+        setattr(obj, attr, scoped)
+        self.wrap(obj, attr, scope)
 
     def wrap(self, obj, attr: str, phase: str) -> None:
         fn = getattr(obj, attr)
 
         def timed(*args, **kw):
+            name = phase if self.scope in (None, phase) else f"{self.scope}/{phase}"
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
             out = fn(*args, **kw)
             end.record()
-            self.events.setdefault(phase, []).append((start, end))
+            self.events.setdefault(name, []).append((start, end))
             return out
 
         if hasattr(fn, "infer_dtype"):
@@ -920,7 +1024,7 @@ def zero_phase(cfg) -> dict:
         res = planner.run(ZERO_B, max_steps=ZERO_STEPS, generator=gen)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = launch_counts()
+        launches = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
     log(f"  launches in the run: {launches}; descent steps {steps[0]}")
     for name in ("spd_inverse", "edge_factor_gain"):
@@ -1014,10 +1118,10 @@ def zero_agreement_phase(cfg) -> dict:
 
         kernels.reset_launch_counts()
         with_kernels = run()
-        launches = launch_counts()
+        launches = kernels.launch_counts()
         with plain_versions():
             plain = run()
-        check(launch_counts() == launches, "a kernel launched under plain_versions()")
+        check(kernels.launch_counts() == launches, "a kernel launched under plain_versions()")
     finally:
         torch.use_deterministic_algorithms(False)
     for name in ("spd_inverse", "edge_factor_gain"):
@@ -1164,7 +1268,7 @@ def training_phase(cfg) -> dict:
             learner.learn(num_iterations=TRAIN_ITERATIONS)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = launch_counts()
+            launches = kernels.launch_counts()
         split = timer.ms()
         split["selfplay_other"] = split["selfplay"] - sum(
             split[k] for k in ("descent", "leaf_planes", "forward", "integrate_backup"))
@@ -1240,7 +1344,7 @@ def training_phase(cfg) -> dict:
             accepted = learner.arena_gate(prev, ARENA_GAMES)
             torch.cuda.synchronize()
             arena_wall = time.perf_counter() - t0
-            arena_launches = launch_counts()
+            arena_launches = kernels.launch_counts()
         arena_steps = 2 * ARENA_STEPS
         log(f"  arena gate: {ARENA_GAMES} games x {ARENA_STEPS} steps per network, "
             f"accepted={accepted}, {arena_wall:.1f} s; launches {arena_launches}; descent steps "
@@ -1310,10 +1414,10 @@ def training_agreement_phase(cfg) -> dict:
     try:
         kernels.reset_launch_counts()
         with_kernels = run()
-        launches = launch_counts()
+        launches = kernels.launch_counts()
         with plain_versions():
             plain = run()
-        check(launch_counts() == launches, "a kernel launched under plain_versions()")
+        check(kernels.launch_counts() == launches, "a kernel launched under plain_versions()")
     finally:
         torch.use_deterministic_algorithms(False)
     for name in ("spd_inverse", "edge_factor_gain"):
@@ -1356,7 +1460,7 @@ def static_phase(cfg) -> dict:
         res = planner.run(STATIC_B, generator=gen)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = launch_counts()
+        counts = kernels.launch_counts()
         steps = res.budgets.shape[1] - 1
         check(counts["spd_inverse"] == steps,
               f"{name}: spd_inverse launched {counts['spd_inverse']} times in {steps} steps")
@@ -1492,7 +1596,7 @@ def cmaes_phase(tcfg) -> dict:
     res = planner.run(CMAES_B, max_steps=CMAES_STEPS, generator=gen)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = launch_counts()
+    launches = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
     want = {"edge_factor_gain": CMAES_STEPS * (G * H + H),
             "spd_trace_product": CMAES_STEPS * H * 2,
@@ -1565,10 +1669,10 @@ def cmaes_agreement_phase(tcfg) -> dict:
 
     kernels.reset_launch_counts()
     with_kernels = run()
-    launches = launch_counts()
+    launches = kernels.launch_counts()
     with plain_versions():
         plain = run()
-    check(launch_counts() == launches, "a kernel launched under plain_versions()")
+    check(kernels.launch_counts() == launches, "a kernel launched under plain_versions()")
     for name in ("spd_inverse", "spd_trace_product", "edge_factor_gain"):
         check(launches[name] > 0, f"{name} was not launched in the CMA-ES agreement run")
     check(np.array_equal(with_kernels.waypoints, plain.waypoints, equal_nan=True),
@@ -1579,6 +1683,328 @@ def cmaes_agreement_phase(tcfg) -> dict:
     log(f"  waypoints, budgets and metric curves identical; launches with kernels {launches}")
     return {"batch": CMAES_AGREE_B, "steps": CMAES_AGREE_STEPS, "identical": True,
             "launches": launches}
+
+
+# ------------------------------------------------------------ classic MCTS
+
+def classic_mission(**changes) -> MissionConfig:
+    return MissionConfig(**{**CLASSIC_KNOBS, **changes})
+
+
+class SearchRecorder:
+    """Records, for every search a classic planner runs (a wrapper around
+    its ``search`` and ``plan``, in this script only): the root visit
+    totals, the per-row root statistics, the actions, and with ``trees``
+    a copy of each whole tree."""
+
+    def __init__(self, planner, trees: bool = False):
+        self.root_visits, self.stats, self.actions, self.trees = [], [], [], []
+        search, plan = planner.search, planner.plan
+
+        def recorded_search(*args, **kw):
+            tree, stats = search(*args, **kw)
+            self.root_visits.append(tree.visits[:, 0].clone())
+            self.stats.append(stats)
+            if trees:
+                self.trees.append({f: getattr(tree, f).clone() for f in CLASSIC_TREE_FIELDS})
+            return tree, stats
+
+        def recorded_plan(*args, **kw):
+            action = plan(*args, **kw)
+            self.actions.append(action.clone())
+            return action
+
+        planner.search, planner.plan = recorded_search, recorded_plan
+
+
+@contextlib.contextmanager
+def classic_split(planner):
+    """Splits the replans run inside the block by CUDA events, per replan:
+    in the descent and in the rollouts the sweeps, the edge updates with
+    their rank-M updates, and the rest (UCT, widening and tree writes; the
+    rollout policy's choices); the backup with the root statistics; the
+    commit.  The dict it yields is filled when the block ends."""
+    world = planner.world
+    timer = PhaseTimer()
+    timer.wrap_scope(planner, "_descend", "descent")
+    timer.wrap_scope(planner, "_rollout", "rollout")
+    parts = (("_sweep_rewards", "sweeps"), ("_edge", "edges"), ("_downdate", "edges"),
+             ("_backup", "backup"), ("root_stats", "backup"), ("search", "replan"))
+    for attr, part in parts:
+        timer.wrap(planner, attr, part)
+    own = vars(world).get("step_index")
+    timer.wrap(world, "step_index", "commit")
+    split = {}
+    try:
+        yield split
+        ms = timer.ms()
+    finally:
+        for attr in ("_descend", "_rollout") + tuple(attr for attr, _ in parts):
+            delattr(planner, attr)
+        if own is None:
+            delattr(world, "step_index")
+        else:
+            setattr(world, "step_index", own)
+    n = len(timer.events["replan"])
+    sweeps = len(timer.events["descent/sweeps"]) + len(timer.events["rollout/sweeps"])
+    split.update({
+        "replans": n,
+        "sweeps": (ms["descent/sweeps"] + ms["rollout/sweeps"]) / n,
+        "edges_rank_m": (ms["descent/edges"] + ms["rollout/edges"]) / n,
+        "descent_uct_tree": (ms["descent"] - ms["descent/sweeps"] - ms["descent/edges"]) / n,
+        "rollout_policy": (ms["rollout"] - ms["rollout/sweeps"] - ms["rollout/edges"]) / n,
+        "backup_root_stats": ms["backup"] / n,
+        "other": (ms["replan"] - ms["descent"] - ms["rollout"] - ms["backup"]) / n,
+        "replan": ms["replan"] / n,
+        "commit": ms["commit"] / len(timer.events["commit"]),
+        "sweep_ms_each": (ms["descent/sweeps"] + ms["rollout/sweeps"]) / sweeps,
+    })
+
+
+def classic_phase(cfg) -> dict:
+    mc = classic_mission()
+    world = IPPWorld(cfg)
+    planner = ClassicMCTSPlanner(world, mc)
+    S, H = planner.num_simulations, planner.horizon
+    steps_per_sim = (H + 1) + H  # descent steps and rollout steps, every one in lockstep
+    log(f"== classic MCTS: example.yaml, float32, {S} simulations, horizon {H}, W = 1, "
+        f"gamma {mc.gamma}, c {mc.uct_c}, k {mc.k}, alpha {mc.alpha}, eps {mc.epsilon_expand}/"
+        f"{mc.epsilon_rollout}, radius {mc.horizontal_spacing}, GCB {mc.use_gcb_rollout}; "
+        f"B={CLASSIC_B}, {CLASSIC_STEPS} replan steps")
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    # warm-up at the run's shapes with 2 simulations: cuBLAS handles, allocator
+    ClassicMCTSPlanner(world, classic_mission(num_simulations=2)).run(CLASSIC_B, max_steps=1,
+                                                                      generator=gen)
+    rec = SearchRecorder(planner)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with classic_split(planner) as split:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = planner.run(CLASSIC_B, max_steps=CLASSIC_STEPS, generator=gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    per_replan = S * steps_per_sim
+    want = {"spd_inverse": CLASSIC_STEPS, "spd_inverse_factor": 0,
+            "spd_trace_product": 2 * CLASSIC_STEPS * per_replan,
+            "edge_factor_gain": CLASSIC_STEPS * per_replan}
+    log(f"  launches in the run: {launches} (want {want}: per replan S (Hc + H) = {per_replan} "
+        f"edge updates, two trace-product launches per sweep, one commit)")
+    check(launches == want, "classic launch counts differ from the stated ones")
+    check(len(rec.root_visits) == CLASSIC_STEPS, f"{len(rec.root_visits)} searches")
+    root = torch.stack(rec.root_visits)
+    log(f"  root visits: min {root.min().item():g}, max {root.max().item():g} (want {S} for every "
+        f"mission at every replan)")
+    check(bool((root == S).all()), "a root's visit total is not the simulation count")
+    unc = res.metrics["uncertainty"].mean(axis=0)
+    check(res.waypoints.shape == (CLASSIC_B, CLASSIC_STEPS, 3), f"waypoints {res.waypoints.shape}")
+    for k in ("rmse", "mll", "uncertainty", "uncertainty_difference"):
+        check(bool(np.isfinite(res.metrics[k]).all()), f"metric {k} not finite")
+    check(bool(np.all(np.diff(unc) < 0)), "uncertainty does not fall step over step")
+    log(f"  mean uncertainty per step: {np.array2string(unc, precision=3)}")
+
+    log("  per replan and commit of the run, by CUDA events (ms): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in split.items() if k not in ("replans", "sweep_ms_each"))
+        + f"; {split['sweep_ms_each']:.3f} ms per sweep")
+    out = {
+        "batch": CLASSIC_B, "steps": CLASSIC_STEPS, "simulations": S, "horizon": H,
+        "workers": 1, "run_wall_s": wall, "ms_per_step": wall / CLASSIC_STEPS * 1e3,
+        "ms_per_mission_replan": wall / (CLASSIC_B * CLASSIC_STEPS) * 1e3,
+        "peak_mem_gb": peak, "mean_uncertainty": unc.tolist(), "launches": launches,
+        "root_visits": [root.min().item(), root.max().item()], "replan_split_ms": split,
+    }
+    log(f"  run: {out['ms_per_step']:.1f} ms per replan step, "
+        f"{out['ms_per_mission_replan']:.3f} ms per mission-replan; peak {peak:.2f} GB")
+
+    # root-parallel: W workers of S / W simulations each, R = B·W rows
+    W = CLASSIC_WORKERS
+    p4 = ClassicMCTSPlanner(world, classic_mission(num_mcts_workers=W))
+    S4, B4 = p4.num_simulations, CLASSIC_B // W
+    rec4 = SearchRecorder(p4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res4 = p4.run(B4, max_steps=1, generator=gen)
+    torch.cuda.synchronize()
+    wall4 = time.perf_counter() - t0
+    launches4 = kernels.launch_counts()
+    want4 = {"spd_inverse": 1, "spd_inverse_factor": 0,
+             "spd_trace_product": 2 * S4 * steps_per_sim, "edge_factor_gain": S4 * steps_per_sim}
+    log(f"== classic MCTS root-parallel: W = {W}, {S4} simulations per worker, B={B4} "
+        f"(R = {B4 * W} rows), 1 replan step; launches {launches4} (want {want4})")
+    check(launches4 == want4, "root-parallel launch counts differ from the stated ones")
+    root4 = rec4.root_visits[0].view(B4, W)
+    check(bool((root4 == S4).all()), "a worker's root visit total is not its simulation count")
+    check(bool((root4.sum(dim=1) == W * S4).all()), "a mission's root visits do not sum to S")
+    stats = rec4.stats[0]
+    vis = stats.visits.view(B4, W, -1).sum(dim=1)
+    val = stats.values.view(B4, W, -1).sum(dim=1)
+    merged = torch.where(vis > 0, val / vis.clamp(min=1e-30), float("-inf"))
+    chosen = merged.gather(1, rec4.actions[0][:, None])[:, 0]
+    check(bool((chosen == merged.amax(dim=1)).all()),
+          "the action is not the best of the merged per-action statistics")
+    unc4 = res4.metrics["uncertainty"].mean(axis=0)
+    check(bool(unc4[-1] < unc4[0]), "uncertainty does not fall (root-parallel)")
+    out["root_parallel"] = {
+        "workers": W, "simulations_per_worker": S4, "batch": B4, "rows": B4 * W,
+        "ms_per_step": wall4 * 1e3, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches4, "mean_uncertainty": unc4.tolist(),
+        "mission_root_visits": [root4.sum(dim=1).min().item(), root4.sum(dim=1).max().item()],
+    }
+    log(f"  root visits per worker {S4}, per mission {W * S4} (checked); the actions maximise "
+        f"the merged per-action means; {wall4 * 1e3:.1f} ms per replan step, peak "
+        f"{out['root_parallel']['peak_mem_gb']:.2f} GB; mean uncertainty "
+        f"{np.array2string(unc4, precision=3)}")
+    return out
+
+
+def classic_agreement_phase(cfg) -> dict:
+    log(f"== kernels vs plain versions on classic MCTS: B={CLASSIC_AGREE_B}, "
+        f"{CLASSIC_AGREE_SIMS} simulations, one replan and its commit, W = 1 and W = 2 with GCB")
+    world = IPPWorld(cfg)
+    out = {}
+    for name, fields in (("w1", {}), ("w2_gcb", dict(num_mcts_workers=2, use_gcb_rollout=True))):
+        planner = ClassicMCTSPlanner(world, classic_mission(num_simulations=CLASSIC_AGREE_SIMS,
+                                                            **fields))
+        rec = SearchRecorder(planner, trees=True)
+        gen = torch.Generator(device="cuda").manual_seed(21)
+        state0 = world.init_state(CLASSIC_AGREE_B, gen)
+        noise = torch.randn((1, CLASSIC_AGREE_B, world.H.shape[1]), generator=gen, device="cuda")
+
+        def run():
+            return planner.run(CLASSIC_AGREE_B, 1, init_state=state0, noise=noise,
+                               generator=torch.Generator(device="cuda").manual_seed(22))
+
+        kernels.reset_launch_counts()
+        with_kernels = run()
+        launches = kernels.launch_counts()
+        with plain_versions():
+            plain = run()
+        check(kernels.launch_counts() == launches, "a kernel launched under plain_versions()")
+        for k in ("spd_inverse", "spd_trace_product", "edge_factor_gain"):
+            check(launches[k] > 0, f"{k} was not launched in the classic agreement run")
+        (tk, tp), (ak, ap) = rec.trees, rec.actions
+        for f in CLASSIC_TREE_FIELDS:
+            check(torch.equal(tk[f], tp[f]), f"{name}: tree field {f} differs from the plain run")
+        check(torch.equal(ak, ap), f"{name}: actions differ between kernels and plain versions")
+        check(np.array_equal(with_kernels.waypoints, plain.waypoints, equal_nan=True),
+              f"{name}: waypoints differ")
+        for k, v in plain.metrics.items():
+            check(np.array_equal(with_kernels.metrics[k], v, equal_nan=True),
+                  f"{name}: metric {k} differs")
+        allocated = tk["next_free"] - 1
+        out[name] = {"identical": True, "launches": launches, "rows": tk["visits"].shape[0],
+                     "nodes_allocated": [int(allocated.min()), int(allocated.max())]}
+        log(f"  {name}: trees ({', '.join(CLASSIC_TREE_FIELDS)}), actions, waypoints and metrics "
+            f"identical over {tk['visits'].shape[0]} rows; launches with kernels {launches}")
+    return out
+
+
+def entry_points_phase() -> dict:
+    """The port's two entry points as a user starts them, in two
+    subprocesses side by side with implicit training refused: the
+    experiment runner over all eight mission types on example.yaml (the
+    committed checkpoint for mcts_zero), and the training script at a tiny
+    size.  Each one's seconds run from the common start to its exit."""
+    import importlib.util
+
+    import yaml
+
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    log(f"== entry points: python -m ipp_rl_tpu_torch.main (eight missions, B=32, 8 steps) and "
+        f"python -m ipp_rl_tpu_torch.tools.train_zero (tiny); matplotlib "
+        f"{'present' if has_mpl else 'ABSENT: --no-plots'}")
+    out_dir = ROOT / "chiprun_out" / "entry_points"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    raw = yaml.safe_load((CONFIG_DIR / "example.yaml").read_text())
+    missions = raw["experiment"]["missions"]
+    check(missions[0]["type"] == "mcts_zero", "example.yaml's first mission is not mcts_zero")
+    missions[0]["hyper_params"].update(CHECKPOINT_HP)
+    missions += [
+        {"type": "spiral", "color": "black", "num_waypoints": 100},
+        {"type": "random_continuous", "color": "gray"},
+        {**CLASSIC_KNOBS, "color": "cyan"},
+        {"type": "cmaes", "color": "purple", "episode_horizon": 5, "cma_popsize": 12,
+         "cma_maxiter": 20},
+    ]
+    config = out_dir / "eight_missions.yaml"
+    config.write_text(yaml.safe_dump(raw))
+    env = {**os.environ, "IPP_ALLOW_IMPLICIT_TRAINING": "0"}
+    runs = {  # the two run side by side: each paces itself on the host
+        "main": ["ipp_rl_tpu_torch.main", "--config", str(config), "--batch", "32",
+                 "--max-steps", "8", "--results", str(out_dir / "results"),
+                 "--checkpoints", str(CHECKPOINT.parent), "--logs", str(out_dir / "logs")]
+        + ([] if has_mpl else ["--no-plots"]),
+        "train_zero": ["ipp_rl_tpu_torch.tools.train_zero", "--iterations", "1", "--envs", "16",
+                       "--sims", "16", "--max-episode-steps", "4", "--batch-size", "32",
+                       "--epochs", "1", "--eval-batch", "8", "--eval-steps", "4", "--out",
+                       str(out_dir / "train_zero")],
+    }
+    procs, seconds = {}, {}
+    t0 = time.perf_counter()
+    try:
+        for name, args in runs.items():
+            log_file = open(out_dir / f"{name}.log", "w")
+            procs[name] = (subprocess.Popen([sys.executable, "-m", *args], cwd=ROOT, env=env,
+                                            stdout=log_file, stderr=subprocess.STDOUT), log_file)
+        while len(seconds) < len(procs) and time.perf_counter() - t0 < ENTRY_POINTS_TIMEOUT_S:
+            for name, (proc, _) in procs.items():
+                if name not in seconds and proc.poll() is not None:
+                    seconds[name] = time.perf_counter() - t0
+            time.sleep(0.2)
+    finally:
+        for proc, log_file in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log_file.close()
+    for name, (proc, _) in procs.items():
+        if proc.returncode != 0:
+            log((out_dir / f"{name}.log").read_text()[-4000:])
+        check(name in seconds, f"{name} did not end within {ENTRY_POINTS_TIMEOUT_S} s")
+        check(proc.returncode == 0, f"{name} exited with {proc.returncode}")
+    main_s, train_s = seconds["main"], seconds["train_zero"]
+    (result,) = (out_dir / "results").iterdir()
+    kpis = json.loads((result / "kpis.json").read_text())
+    check(len(kpis) == 8, f"kpis.json has {len(kpis)} rows, not 8")
+    with open(result / "experiment.pkl", "rb") as f:
+        bundle = pickle.load(f)
+    rows = {}
+    for name, res in bundle["results"].items():
+        unc = res["metrics"]["uncertainty"]
+        rows[name] = {"prior": float(unc[:, 0].mean()), "final": float(unc[:, -1].mean()),
+                      "mean_steps": float(res["num_steps"].mean()),
+                      "wall_s": bundle["run_times"][name]}
+        check(rows[name]["final"] < rows[name]["prior"],
+              f"{name}: the final uncertainty is not below the prior")
+    if has_mpl:
+        for plot in ("uncertainty.png", "paths_3d.png", "run_stats.png"):
+            check((result / "plots" / plot).exists(), f"plot {plot} missing")
+    finished = [json.loads(line) for line in (out_dir / "logs" / "notifications.jsonl")
+                .read_text().splitlines() if json.loads(line)["kind"] == "finished"]
+    check(len(finished) == 1, "the experiment did not report its end")
+    launches = finished[0]["info"]["kernel_launches"]
+    for k in ("spd_inverse", "spd_trace_product", "edge_factor_gain"):
+        check(launches[k] > 0, f"{k} was not launched by the experiment")
+    for name, r in rows.items():
+        log(f"  {name}: mean uncertainty {r['prior']:.2f} -> {r['final']:.2f}, "
+            f"{r['mean_steps']:.1f} steps, {r['wall_s']:.1f} s")
+    log(f"  main: exit 0 in {main_s:.1f} s, 8 KPI rows, experiment.pkl loads, plots "
+        f"{'written' if has_mpl else 'skipped (--no-plots)'}; kernel launches {launches}")
+
+    ev = json.loads((out_dir / "train_zero" / "eval.json").read_text())
+    check(list(ev) == ["mcts_zero", "greedy", "random"], f"eval.json rows {list(ev)}")
+    check(all(np.isfinite(r["final_uncertainty"]) for r in ev.values()),
+          "eval.json holds a non-finite uncertainty")
+    log(f"  train_zero: exit 0 in {train_s:.1f} s; eval.json final uncertainty "
+        + ", ".join(f"{k} {v['final_uncertainty']:.2f}" for k, v in ev.items()))
+    return {"matplotlib": has_mpl, "main_s": main_s, "train_zero_s": train_s, "missions": rows,
+            "launches": launches, "train_zero_eval": {k: v["final_uncertainty"]
+                                                     for k, v in ev.items()}}
 
 
 def main() -> int:
@@ -1634,17 +2060,24 @@ def main() -> int:
     tcfg = load_config(str(CONFIG_DIR / "temperature_cmaes.yaml"))
     cmaes_run = timed("cmaes", cmaes_phase, tcfg)
     cmaes_agreement = timed("cmaes_agreement", cmaes_agreement_phase, tcfg)
-    new_s = phase_s["static"] + phase_s["cmaes"] + phase_s["cmaes_agreement"]
+    classic = timed("classic", classic_phase, cfg)
+    classic_agreement = timed("classic_agreement", classic_agreement_phase, cfg)
+    entry_points = timed("entry_points", entry_points_phase)
+    pr6_s = phase_s["static"] + phase_s["cmaes"] + phase_s["cmaes_agreement"]
+    pr7_s = phase_s["classic"] + phase_s["classic_agreement"] + phase_s["entry_points"]
     log(f"phase seconds: build {build_s:.1f}, " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
         + f"; training: learn {training['learn_wall_s']:.1f}, fixed-batch check "
         f"{training['loss_check_s']:.1f}, arena gate {training['arena_wall_s']:.1f}; "
-        f"static + cmaes + cmaes_agreement {new_s:.1f} (allowance 60)")
+        f"static + cmaes + cmaes_agreement {pr6_s:.1f} (allowance 60); "
+        f"classic + classic_agreement + entry_points {pr7_s:.1f} (allowance 120)")
     for r in rows:  # over the main paths, each counted from 0
         r["launches_by_path"] = {"greedy": greedy["launches"][r["name"]],
                                  "zero": zero["launches"][r["name"]],
                                  "train": training["launches"][r["name"]],
                                  "static": static["launches"][r["name"]],
-                                 "cmaes": cmaes_run["launches"][r["name"]]}
+                                 "cmaes": cmaes_run["launches"][r["name"]],
+                                 "classic": classic["launches"][r["name"]],
+                                 "experiment": entry_points["launches"][r["name"]]}
         r["launches"] = sum(r["launches_by_path"].values())
 
     out_dir = ROOT / "chiprun_out"
@@ -1655,7 +2088,8 @@ def main() -> int:
         "greedy": greedy, "agreement": agreement, "zero": zero,
         "zero_agreement": zero_agreement, "training": training,
         "training_agreement": training_agreement, "static": static, "cmaes": cmaes_run,
-        "cmaes_agreement": cmaes_agreement,
+        "cmaes_agreement": cmaes_agreement, "classic": classic,
+        "classic_agreement": classic_agreement, "entry_points": entry_points,
     }, indent=1))
 
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",

@@ -282,3 +282,13 @@ def reset_launch_counts() -> None:
     spd_inverse_factor.launches = 0
     spd_trace_product_packed.launches = 0
     edge_factor_gain.launches = 0
+
+
+def launch_counts() -> dict:
+    """Each kernel's launches since the last reset, by kernel name."""
+    return {
+        "spd_inverse": spd_inverse.launches,
+        "spd_inverse_factor": spd_inverse_factor.launches,
+        "spd_trace_product": spd_trace_product_packed.launches,
+        "edge_factor_gain": edge_factor_gain.launches,
+    }

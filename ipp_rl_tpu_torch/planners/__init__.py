@@ -7,3 +7,4 @@ from ipp_rl_tpu_torch.planners.static_paths import (  # noqa: F401
     SpiralPlanner,
 )
 from ipp_rl_tpu_torch.planners.cmaes import CMAESPlanner  # noqa: F401
+from ipp_rl_tpu_torch.planners.mcts_classic import ClassicDraws, ClassicMCTSPlanner  # noqa: F401

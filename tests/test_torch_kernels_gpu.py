@@ -462,3 +462,109 @@ def test_static_baseline_on_card_matches_cpu(cuda):
     np.testing.assert_array_equal(got.waypoints, want.waypoints)
     for k, v in want.metrics.items():
         np.testing.assert_allclose(got.metrics[k], v, rtol=1e-9, atol=1e-12)
+
+
+def _classic(world, **changes):
+    from ipp_rl_tpu_torch.planners import ClassicMCTSPlanner
+
+    knobs = dict(type="mcts", num_simulations=6, episode_horizon=3, gamma=0.95, uct_c=2.0, k=4.0,
+                 alpha=0.75, epsilon_expand=0.2, epsilon_rollout=0.5, horizontal_spacing=10.0)
+    return ClassicMCTSPlanner(world, MissionConfig(**{**knobs, **changes}))
+
+
+CLASSIC_TREE = ("parent", "action_in", "children", "num_children", "next_free", "visits",
+                "value_sum", "budget", "wc_in")
+
+
+@pytest.mark.parametrize("R", [256, 1025])
+def test_classic_sweep_and_edge_inputs_are_bitwise_plain(cuda, R):
+    """The classic planner's sweep (float32 streams, per-row masks of a root
+    mean after commits) and edge update: each K2 launch and the edge kernel
+    against their plain versions, bitwise."""
+    cfg = load_config(str(CONFIG_DIR / "example.yaml"))
+    world = IPPWorld(cfg)
+    planner = _classic(world)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    state = world.init_state(R, gen)
+    for _ in range(3):
+        a = torch.randint(0, world.num_actions, (R,), generator=gen, device=cuda)
+        state = world.step_index(state, a, generator=gen)
+    dmask = planner._diag_mask(state.mean, state.cov)
+    assert bool((dmask == 0).any()) and not bool((dmask == dmask[:1]).all())
+    recorded, launch = [], kernels.spd_trace_product_packed
+
+    def record(S, G):
+        recorded.append((S, G))
+        return launch(S, G)
+
+    record.launches = 0
+    kernels.spd_trace_product_packed = record
+    try:
+        planner._sweep_rewards(state.cov, planner._costs(state.pos), dmask)
+    finally:
+        kernels.spd_trace_product_packed = launch
+    assert len(recorded) == 2 and all(S.dtype == torch.float32 for S, _ in recorded)
+    for S, G in recorded:
+        assert torch.equal(kernels.spd_trace_product_packed(S, G),
+                           smallchol.spd_trace_product_packed(S, G))
+    H = world.H[a]
+    A = H @ state.cov
+    args = (A @ H.mT, A, world.R_diag, a, dmask)
+    for got, want in zip(kernels.edge_factor_gain(*args), smallchol.edge_factor_gain(*args)):
+        assert torch.equal(got, want)
+
+
+def test_classic_search_on_card_kernels_equal_plain(cuda):
+    """One root-parallel GCB search (B 4, W 2) through the kernels and
+    through their plain versions, from one generator seed: the same trees."""
+    cfg = load_config(str(CONFIG_DIR / "example.yaml"))
+    world = IPPWorld(cfg)
+    planner = _classic(world, num_simulations=12, num_mcts_workers=2, use_gcb_rollout=True)
+    state = world.init_state(4, torch.Generator(device=cuda).manual_seed(8))
+
+    def search():
+        return planner.search(state, torch.Generator(device=cuda).manual_seed(9))[0]
+
+    got = search()
+    saved = {k: getattr(kernels, k) for k in ("spd_inverse", "spd_trace_product_packed",
+                                              "edge_factor_gain")}
+    try:
+        for k in saved:
+            setattr(kernels, k, getattr(smallchol, k))
+        want = search()
+    finally:
+        for k, fn in saved.items():
+            setattr(kernels, k, fn)
+    for f in CLASSIC_TREE:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert got.visits[:, 0].tolist() == [6.0] * 8
+
+
+def test_classic_search_on_card_matches_cpu(cuda):
+    """float64, canonical config: one search on the card (through the
+    kernels) with the CPU run's injected draws builds the CPU run's trees."""
+    from ipp_rl_tpu_torch.planners.mcts_classic import ClassicDraws, gumbel
+
+    cfg = load_config(str(CONFIG_DIR / "example.yaml"))
+    cpu_world = IPPWorld(cfg, dtype=torch.float64, device="cpu")
+    cpu = _classic(cpu_world, num_mcts_workers=2)
+    B, R = 3, 6
+    S, H, A, C = cpu.num_simulations, cpu.horizon, cpu_world.num_actions, cpu.max_children
+    gen = torch.Generator().manual_seed(10)
+    state0 = cpu_world.init_state(B, gen)
+    draws = ClassicDraws(
+        select=gumbel((S, H + 1, R, C), gen, torch.float64, "cpu"),
+        expand=gumbel((S, H + 1, R, A), gen, torch.float64, "cpu"),
+        expand_u=torch.rand((S, H + 1, R), generator=gen, dtype=torch.float64),
+        rollout=gumbel((S, H, R, A), gen, torch.float64, "cpu"),
+        rollout_u=torch.rand((S, H, R), generator=gen, dtype=torch.float64))
+    want, want_stats = cpu.search(state0, draws=draws)
+    card = _classic(IPPWorld(cfg, dtype=torch.float64), num_mcts_workers=2)
+    got, got_stats = card.search(_to(state0, cuda), draws=ClassicDraws(
+        **{f.name: getattr(draws, f.name).to(cuda) for f in dataclasses.fields(draws)
+           if getattr(draws, f.name) is not None}))
+    for f in CLASSIC_TREE[:5]:
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    for f in CLASSIC_TREE[5:]:
+        torch.testing.assert_close(getattr(got, f).cpu(), getattr(want, f), rtol=1e-9, atol=1e-12)
+    assert torch.equal(got_stats.best_child_action.cpu(), want_stats.best_child_action)

@@ -1,12 +1,15 @@
 """Boundaries of the PyTorch/CUDA port: it imports neither JAX, flax,
 optax, msgpack nor the JAX package (the card's machine has none of them),
 its entry points run on the card unless told otherwise (no public
-function defaults its ``device`` to the CPU), and
+function defaults its ``device`` to the CPU; ``python -m
+ipp_rl_tpu_torch.main`` stops without a card), importing an entry point
+runs nothing, and
 ``chip_smoke.py`` fails (printing no result) without a card or without the
 rest of the repository."""
 
 import importlib
 import inspect
+import os
 import pathlib
 import re
 import shutil
@@ -116,8 +119,34 @@ def test_no_public_device_default_is_the_cpu():
                     offenders.append(f"{name}.{label} = {param.default!r}")
     assert offenders == []
     for fn in ("planners.zero.mcts.init_tree", "ops.kalman.prepare_batched_sweep",
-               "planners.zero.train.init_train_state", "env.world.IPPWorld.__init__"):
+               "planners.zero.train.init_train_state", "env.world.IPPWorld.__init__",
+               "experiments.experiment.Experiment.__init__"):
         assert f"ipp_rl_tpu_torch.{fn}" in checked
+
+
+def test_entry_point_modules_run_nothing_when_imported(tmp_path):
+    """Importing the entry points parses no arguments, writes no file and
+    prints nothing: their work runs under the ``__main__`` check."""
+    code = ("import sys; sys.argv = ['x', '--bogus']\n"
+            "import ipp_rl_tpu_torch.main, ipp_rl_tpu_torch.tools.train_zero\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, capture_output=True,
+                          text=True, timeout=120, env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout == "" and list(tmp_path.iterdir()) == []
+
+
+def test_main_without_a_card_exits_nonzero(tmp_path):
+    """The port's entry point runs on the card: without one it stops at
+    once, unless given ``--device cpu`` (tests/test_torch_experiment.py
+    runs it so)."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    proc = subprocess.run([sys.executable, "-m", "ipp_rl_tpu_torch.main", "--max-steps", "1",
+                           "--results", str(tmp_path / "r"), "--logs", str(tmp_path / "l")],
+                          cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr
+    assert not (tmp_path / "r").exists()
 
 
 def test_chip_smoke_fails_without_a_card():
