@@ -148,6 +148,40 @@ Phases, each of which fails the run on a failed check (none is caught):
    ``chiprun_out/entry_points/``.  Phase 2 also holds ``spd_trace_product``
    on each launch of one classic sweep (R = 1024, float32 streams, per-row
    masks) and ``edge_factor_gain`` on that step's edge inputs.
+13. deployment through its entry points at one mission (B = 1):
+   ``IPPMissionNode`` on example.yaml's mission 0 (mcts_zero with the
+   committed checkpoint, as phase 12 runs it) for ``DEPLOY_ZERO_NODE_STEPS``
+   steps and a greedy node for its whole mission; ``ClosedLoopMission``
+   greedy for its whole budget with tracking noise 0 and
+   ``DEPLOY_TRACKING_STD``, and mission 0 for ``DEPLOY_ZERO_CYCLES`` cycles
+   with that noise; the counters set to 0 before the first node and read
+   after the last loop: ``spd_inverse`` once per commit (the planner's, and
+   the commit at the actual pose), ``edge_factor_gain`` once per zero
+   descent step, ``spd_trace_product`` launched, ``spd_inverse_factor`` not.
+   Checks: every flown trajectory ends within ``TRAJECTORY_END_TOL_M`` of its
+   waypoint (under tracking noise, within one sampling interval's flight),
+   uncertainty falls, the budget falls every cycle.  Times: ms per node
+   step; ms per cycle split into plan, fly (the host's C++ min-snap) and
+   measure + commit.  Then a greedy loop with tracking noise, with the
+   kernels and with their plain versions from one seed: flight logs
+   identical.  The min-snap library is built by g++ from the port's source
+   beside the kernels (phase 1);
+14. multi-device at world size 1 over NCCL (``initialize_multihost``): the
+   20 x 20 large-grid mission (tests/test_sharded.py's config, float64,
+   ``GRID_STEPS`` steps) row- and action-sharded against the dense oracle:
+   identical actions, covariance and mean within 1e-8; the 48 x 48 grid of
+   the same family (N = 2304, A = 4608, M = 9) in float32, sharded and
+   dense, same actions; the sharded run's ms per step split by CUDA
+   events into sweep, commit and collectives (nested), its set-up apart,
+   its peak memory, ``spd_inverse`` twice per step; then two ranks on the
+   one card over gloo (two ``--two-rank-worker`` subprocesses): a probe of
+   all_reduce, all_gather_into_tensor and all_to_all_single on CUDA
+   tensors and, where gloo takes them, the 20 x 20 mission at mp = 2 from
+   the same draws: actions identical to one rank's, covariance within
+   1e-8.  Phase 2 also holds ``spd_trace_product``, ``spd_inverse`` and
+   ``edge_factor_gain`` at B = 1 (the deployed shapes) and ``spd_inverse``
+   at the large-grid sweep's (A, 9, 9) and the sharded commit's (9, 9), in
+   float32 and float64.
 
 Float32 products run in full float32: TF32 is switched off for matmuls
 and cuDNN.  The last stdout line is ``{"ok": true, "device": {...}}``;
@@ -158,7 +192,9 @@ report goes to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
+import datetime
 import json
 import os
 import pathlib
@@ -172,7 +208,7 @@ import time
 import numpy as np
 import torch
 
-from ipp_rl_tpu_torch.config import CONFIG_DIR, MissionConfig, load_config
+from ipp_rl_tpu_torch.config import CONFIG_DIR, MissionConfig, config_from_dict, load_config
 from ipp_rl_tpu_torch.env.world import IPPWorld
 from ipp_rl_tpu_torch.ops import kernels, smallchol
 from ipp_rl_tpu_torch.ops.rewards import adaptive_mask
@@ -201,6 +237,7 @@ from ipp_rl_tpu_torch.planners.zero.train import (
     reset_optimizer,
 )
 from ipp_rl_tpu_torch.serialization import read_checkpoint
+from ipp_rl_tpu_torch.trajgen import planner as trajgen
 
 ROOT = pathlib.Path(__file__).resolve().parent
 # published H100 SXM peaks (NVIDIA data sheet), at the full 700 W limit
@@ -236,6 +273,38 @@ CLASSIC_KNOBS = dict(type="mcts", num_simulations=100, episode_horizon=5, gamma=
 CLASSIC_B, CLASSIC_STEPS, CLASSIC_WORKERS = 1024, 2, 4
 CLASSIC_AGREE_B, CLASSIC_AGREE_SIMS = 32, 16
 ENTRY_POINTS_TIMEOUT_S = 600
+# phases 13-14: the deployed loop (one mission), the large-grid missions
+DEPLOY_ZERO_NODE_STEPS, DEPLOY_ZERO_CYCLES, DEPLOY_TRACKING_STD = 4, 3, 0.5
+# a flown segment's last sample lies within this of its waypoint when the UAV
+# tracks exactly (tests/test_mission_node.py's tolerance); from a perturbed
+# start the sampler's last sample can fall up to one sampling interval short
+# of the segment's end, as in the JAX package (bitwise-equal trajectories,
+# tests/test_torch_mission_node.py), so there the bound is max_v x sampling_time
+TRAJECTORY_END_TOL_M = 0.3
+GRID_STEPS, LARGE_GRID_DIM = 4, 48
+TWO_RANK_TIMEOUT_S = 180
+NEW_PHASES_ALLOWANCE_S = 90
+# tests/test_sharded.py:198-229 (20 x 20: N = 400, A = 800, M = 9)
+LARGE_GRID_RAW = {
+    "environment": {"x_dim": 20, "y_dim": 20, "resolution": 4},
+    "sensor": {
+        "type": "rgb_camera",
+        "field_of_view": {"angle_x": 60, "angle_y": 60},
+        "model": {"type": "altitude_dependent", "coeff_a": 0.05, "coeff_b": 0.2},
+        "simulation": {"type": "gaussian_random_field", "cluster_radius": 5},
+    },
+    "mapping": {"fit_gaussian_process": True, "signal_variance": 1.82, "length_scale": 3.67,
+                "noise_variance": 1.42, "nu": 1.5},
+    "experiment": {
+        "title": "large_grid",
+        "constraints": {"dist_to_boundaries": 3, "min_altitude": 8, "max_altitude": 14,
+                        "altitude_spacing": 6, "budget": 60},
+        "scenario": {"adaptive": True, "value_threshold": 0.4, "interval_factor": 0},
+        "uav": {"max_v": 2, "max_a": 2, "sampling_time": 2},
+        "missions": [{"type": "greedy"}],
+        "evaluation": {"repetitions": 1, "metrics": ["uncertainty"]},
+    },
+}
 CLASSIC_TREE_FIELDS = ("parent", "action_in", "children", "num_children", "visits", "value_sum",
                        "budget", "wc_in", "next_free")
 CHECKPOINT = ROOT / "runs" / "zero_canon_r5_best" / "checkpoints" / "shared_net.trained_model.ckpt"
@@ -503,11 +572,14 @@ def kernel_phase(gen: torch.Generator) -> list:
     rows.append(edge_factor_gain_row(gen))
     continuous = continuous_shape_checks(gen)
     classic = classic_shape_checks(gen)
+    deploy = deploy_shape_checks(gen)
     for r in rows:
         if r["name"] in continuous:
             r["continuous_checks"] = continuous[r["name"]]
         if r["name"] in classic:
             r["classic_checks"] = classic[r["name"]]
+        if r["name"] in deploy:
+            r["deploy_checks"] = deploy[r["name"]]
     log(f"  spd_inverse on 32 matrices (one CTA): {rows[0]['one_cta_ms']:.4f} ms device")
     for r in rows:
         log(f"  {r['name']}: kernel {r['ms']:.4f} ms device (graph), {r['call_ms']:.4f} ms "
@@ -666,6 +738,24 @@ def edge_factor_gain_row(gen: torch.Generator) -> dict:
     }
 
 
+def record_trace_products(fn, *args) -> list:
+    """The (S, G) inputs of every spd_trace_product launch of fn(*args)."""
+    recorded = []
+    launch = kernels.spd_trace_product_packed
+
+    def record(S_packed, G_packed):
+        recorded.append((S_packed, G_packed))
+        return launch(S_packed, G_packed)
+
+    record.launches = 0  # the wrapper counts its launch on the name it is bound to
+    kernels.spd_trace_product_packed = record
+    try:
+        fn(*args)
+    finally:
+        kernels.spd_trace_product_packed = launch
+    return recorded
+
+
 def continuous_shape_checks(gen: torch.Generator) -> dict:
     """The kernels at the static baselines' and CMA-ES's shapes, bitwise
     against their plain versions: ``spd_inverse`` on a ``step_position``
@@ -717,19 +807,7 @@ def continuous_shape_checks(gen: torch.Generator) -> dict:
         del P, An, args
     out["edge_factor_gain"] = {k: max(e[k] for e in errs) for k in errs[0]}
 
-    recorded = []
-    launch = kernels.spd_trace_product_packed
-
-    def record(S_packed, G_packed):
-        recorded.append((S_packed, G_packed))
-        return launch(S_packed, G_packed)
-
-    record.launches = 0  # the wrapper counts its launch on the name it is bound to
-    kernels.spd_trace_product_packed = record
-    try:
-        sweep_rewards(tworld, tworld.init_state(CMAES_B, gen))
-    finally:
-        kernels.spd_trace_product_packed = launch
+    recorded = record_trace_products(sweep_rewards, tworld, tworld.init_state(CMAES_B, gen))
     errs = [compare(f"spd_trace_product greedy init {tuple(Sp.shape)}",
                     kernels.spd_trace_product_packed(Sp, Gp),
                     smallchol.spd_trace_product_packed(Sp, Gp)) for Sp, Gp in recorded]
@@ -755,19 +833,8 @@ def classic_shape_checks(gen: torch.Generator) -> dict:
     dmask = planner._diag_mask(state.mean, state.cov)
     check(bool((dmask == 0).any()) and not bool((dmask == dmask[:1]).all()),
           "the classic checks' masks are not per-row")
-    recorded = []
-    launch = kernels.spd_trace_product_packed
-
-    def record(S_packed, G_packed):
-        recorded.append((S_packed, G_packed))
-        return launch(S_packed, G_packed)
-
-    record.launches = 0  # the wrapper counts its launch on the name it is bound to
-    kernels.spd_trace_product_packed = record
-    try:
-        planner._sweep_rewards(state.cov, planner._costs(state.pos), dmask)
-    finally:
-        kernels.spd_trace_product_packed = launch
+    recorded = record_trace_products(planner._sweep_rewards, state.cov,
+                                     planner._costs(state.pos), dmask)
     check(len(recorded) == 2, f"{len(recorded)} trace-product launches in one sweep")
     check(all(Sp.dtype == torch.float32 for Sp, _ in recorded), "the sweep's streams are not f32")
     errs = [compare(f"spd_trace_product classic sweep R={CLASSIC_B} {tuple(Sp.shape)}",
@@ -783,6 +850,62 @@ def classic_shape_checks(gen: torch.Generator) -> dict:
                                        smallchol.edge_factor_gain(*args), ("WcT", "gain"))]
     out["edge_factor_gain"] = {k: max(e[k] for e in errs) for k in errs[0]}
     return out
+
+
+def large_grid_cfg(dim: int):
+    """LARGE_GRID_RAW at a dim x dim grid (the same config family)."""
+    raw = copy.deepcopy(LARGE_GRID_RAW)
+    raw["environment"]["x_dim"] = raw["environment"]["y_dim"] = dim
+    return config_from_dict(raw)
+
+
+def deploy_shape_checks(gen: torch.Generator) -> dict:
+    """The kernels at the deployment and multi-device paths' shapes, bitwise
+    against their plain versions.  One mission (B = 1, the deployed loop's
+    replans and commits, a GP-prior belief after three commits): each
+    ``spd_trace_product`` launch of a greedy sweep ((1, 45, 100) gather and
+    (100, 45, 1) dense), ``spd_inverse`` on a commit's S, ``edge_factor_gain``
+    on a zero replan's edge inputs with the adaptive mask.  ``spd_inverse``
+    on the large-grid sweep's (A/d, 9, 9) innovations at d = 1 (A = 800 and
+    A = 4608) and on the sharded commit's one (9, 9), float32 and float64."""
+    errs = {"spd_inverse": [], "spd_trace_product": [], "edge_factor_gain": []}
+    world = IPPWorld(load_config(str(CONFIG_DIR / "example.yaml")))
+    state = world.init_state(1, gen)
+    for _ in range(3):
+        step = torch.randint(0, world.num_actions, (1,), generator=gen, device="cuda")
+        state = world.step_index(state, step, generator=gen)
+    recorded = record_trace_products(sweep_rewards, world, state)
+    shapes = sorted(tuple(Sp.shape) for Sp, _ in recorded)
+    check(shapes == [(1, T, ACTIONS_PER_GROUP), (ACTIONS_PER_GROUP, T, 1)],
+          f"the B = 1 sweep's trace-product launches have shapes {shapes}")
+    for Sp, Gp in recorded:
+        errs["spd_trace_product"].append(compare(
+            f"spd_trace_product B=1 {tuple(Sp.shape)}", kernels.spd_trace_product_packed(Sp, Gp),
+            smallchol.spd_trace_product_packed(Sp, Gp)))
+    a = torch.randint(0, world.num_actions, (1,), generator=gen, device="cuda")
+    H = world.H[a]
+    A = H @ state.cov
+    S_raw = A @ H.mT
+    S = (0.5 * (S_raw + S_raw.mT) + torch.diag_embed(world.R_diag[a])).contiguous()
+    errs["spd_inverse"].append(compare("spd_inverse B=1 (a commit's S)", kernels.spd_inverse(S),
+                                       smallchol.spd_inverse(S)))
+    scen = world.cfg.scenario
+    mask = adaptive_mask(state.mean, torch.diagonal(state.cov, dim1=-2, dim2=-1),
+                         scen.value_threshold, scen.interval_factor)
+    args = (S_raw, A, world.R_diag, a, mask)
+    for got, want, part in zip(kernels.edge_factor_gain(*args), smallchol.edge_factor_gain(*args),
+                               ("WcT", "gain")):
+        errs["edge_factor_gain"].append(compare(f"edge_factor_gain B=1 ({part})", got, want))
+    for dtype in (torch.float32, torch.float64):
+        for n in (800, 2 * LARGE_GRID_DIM ** 2):
+            S = random_spd(n, gen).to(dtype)
+            errs["spd_inverse"].append(compare(
+                f"spd_inverse large-grid sweep ({n}, 9, 9) {dtype}", kernels.spd_inverse(S),
+                smallchol.spd_inverse(S)))
+        S = random_spd(1, gen)[0].to(dtype)
+        errs["spd_inverse"].append(compare(f"spd_inverse sharded commit (9, 9) {dtype}",
+                                           kernels.spd_inverse(S), smallchol.spd_inverse(S)))
+    return {k: {key: max(e[key] for e in v) for key in v[0]} for k, v in errs.items()}
 
 
 # ------------------------------------------------------------ greedy slice
@@ -2007,6 +2130,351 @@ def entry_points_phase() -> dict:
                                                      for k, v in ev.items()}}
 
 
+# ------------------------------------------------------------ deployment
+
+def drive(obj, fn):
+    """fn() with the host seconds of ``obj``'s commits, planner runs and the
+    UAV's flights (a PartMeter: synchronised around each, nested calls
+    inside their callers') and its zero descent steps counted; returns
+    (fn's result, wall seconds, meter, descent steps)."""
+    from ipp_rl_tpu_torch.ros.sim_robot import SimulatedUAV
+
+    meter, fly = PartMeter(), SimulatedUAV.fly
+    meter.wrap(obj.world, "step_index", "commit")
+    meter.wrap(obj.world, "step_position", "measure_commit")
+    meter.wrap(obj.planner, "run", "plan")
+    meter.wrap(SimulatedUAV, "fly", "fly")
+    try:
+        with contextlib.ExitStack() as stack:
+            steps = (stack.enter_context(count_calls(obj.planner.mcts, "_descend_step"))
+                     if hasattr(obj.planner, "mcts") else [0])
+            t = time.perf_counter()
+            result = fn()
+            wall = time.perf_counter() - t
+    finally:
+        SimulatedUAV.fly = fly
+    return result, wall, meter, steps[0]
+
+
+def check_trajectory_ends(name: str, points, trajectories, tol: float) -> float:
+    """Every trajectory's last sample within ``tol`` of its waypoint; returns
+    the largest gap."""
+    gaps = [float(np.linalg.norm(np.asarray(traj)[-1] - np.asarray(wp)))
+            for wp, traj in zip(points, trajectories)]
+    check(max(gaps) <= tol, f"{name}: a trajectory ends {max(gaps):.3f} m from its waypoint "
+          f"(tolerance {tol:g} m)")
+    return max(gaps)
+
+
+def deploy_phase(cfg) -> dict:
+    """The deployment entry points at one mission (phase 13)."""
+    from ipp_rl_tpu_torch.ros import IPPMissionNode
+    from ipp_rl_tpu_torch.ros import sim_robot
+
+    log(f"== deployment: IPPMissionNode (mcts_zero with the committed checkpoint, "
+        f"{DEPLOY_ZERO_NODE_STEPS} steps; greedy, whole mission) and ClosedLoopMission (greedy, "
+        f"whole budget, tracking noise 0 and {DEPLOY_TRACKING_STD}; mcts_zero, "
+        f"{DEPLOY_ZERO_CYCLES} cycles, noise {DEPLOY_TRACKING_STD}), example.yaml, float32, B=1")
+    zero_mc, greedy_mc = zero_mission(cfg, **CHECKPOINT_HP), MissionConfig(type="greedy")
+    ckpt = str(CHECKPOINT.parent)
+    t0 = time.perf_counter()
+    nodes = {"zero": IPPMissionNode(cfg, zero_mc, checkpoints_dir=ckpt),
+             "greedy": IPPMissionNode(cfg, greedy_mc)}
+    loops = {"greedy": sim_robot.ClosedLoopMission(cfg, greedy_mc),
+             "greedy_noisy": sim_robot.ClosedLoopMission(
+                 cfg, greedy_mc, tracking_noise_std=DEPLOY_TRACKING_STD),
+             "zero_noisy": sim_robot.ClosedLoopMission(
+                 cfg, zero_mc, tracking_noise_std=DEPLOY_TRACKING_STD, checkpoints_dir=ckpt)}
+    setup_s = time.perf_counter() - t0
+
+    out = {"setup_s": setup_s, "nodes": {}, "loops": {}}
+    commits = descents = 0
+    kernels.reset_launch_counts()
+    for name, node, steps in (("zero", nodes["zero"], DEPLOY_ZERO_NODE_STEPS),
+                              ("greedy", nodes["greedy"], None)):
+        msg, wall, meter, desc = drive(node, lambda: node.build_message(max_steps=steps))
+        n = len(msg.points)
+        check(n >= 2 and msg.sampled_trajectory is not None, f"node {name}: {n} points")
+        check(steps is None or n == steps, f"node {name}: {n} points for {steps} steps")
+        check_trajectory_ends(f"node {name}", msg.points[-1:], [msg.sampled_trajectory],
+                              TRAJECTORY_END_TOL_M)
+        check(json.loads(msg.to_json())["points"] == msg.points, f"node {name}: JSON")
+        commits += len(meter.seconds["commit"])
+        descents += desc
+        # a node's run takes the planner's whole step bound; a mission that
+        # ran out of budget still commits (nothing) in the steps after it
+        out["nodes"][name] = {"points": n, "samples": len(msg.sampled_trajectory),
+                              "wall_s": wall, "ms_per_waypoint": wall / n * 1e3,
+                              "commits": len(meter.seconds["commit"]), "descent_steps": desc}
+        log(f"  node {name}: {n} waypoints, {len(msg.sampled_trajectory)} trajectory samples, "
+            f"{len(meter.seconds['commit'])} commits, {wall:.2f} s ({wall / n * 1e3:.1f} ms per "
+            f"waypoint)")
+    for name, loop in loops.items():
+        cycles = DEPLOY_ZERO_CYCLES if name.startswith("zero") else 64
+        flog, wall, meter, desc = drive(loop, lambda: loop.run(max_cycles=cycles))
+        n = len(flog.waypoints)
+        check(n == cycles if name.startswith("zero") else 1 <= n < cycles,
+              f"loop {name}: {n} cycles, budget left {flog.budgets[-1]:.2f}")
+        check(flog.uncertainty[-1] < flog.uncertainty[0], f"loop {name}: uncertainty rose")
+        check(all(b1 < b0 for b0, b1 in zip(flog.budgets, flog.budgets[1:])),
+              f"loop {name}: the budget did not fall every cycle")
+        tol = TRAJECTORY_END_TOL_M if loop.tracking_noise_std == 0 else (
+            cfg.uav.max_v * cfg.uav.sampling_time)
+        end_gap = check_trajectory_ends(f"loop {name}", flog.waypoints, flog.trajectories, tol)
+        gaps = [float(np.linalg.norm(np.subtract(p, w))) for p, w in
+                zip(flog.poses, flog.waypoints)]
+        check((max(gaps) > 0) == (loop.tracking_noise_std > 0),
+              f"loop {name}: poses vs waypoints {max(gaps):.3f} m")
+        sec = {k: sum(meter.seconds.get(k, ())) for k in
+               ("plan", "fly", "commit", "measure_commit")}
+        n_commits = len(meter.seconds["commit"]) + len(meter.seconds.get("measure_commit", ()))
+        commits += n_commits
+        descents += desc
+        split = {"plan": (sec["plan"] - sec["commit"]) / n * 1e3, "fly": sec["fly"] / n * 1e3,
+                 "measure_commit": (sec["commit"] + sec["measure_commit"]) / n * 1e3}
+        out["loops"][name] = {
+            "cycles": n, "wall_s": wall, "ms_per_cycle": wall / n * 1e3, "split_ms": split,
+            "uncertainty": [flog.uncertainty[0], flog.uncertainty[-1]],
+            "rmse": [flog.rmse[0], flog.rmse[-1]], "budget_left": flog.budgets[-1],
+            "max_pose_error_m": max(gaps), "max_trajectory_end_gap_m": end_gap,
+            "commits": n_commits, "descent_steps": desc}
+        log(f"  loop {name}: {n} cycles, uncertainty {flog.uncertainty[0]:.2f} -> "
+            f"{flog.uncertainty[-1]:.2f}, max pose error {max(gaps):.3f} m, trajectory ends "
+            f"within {end_gap:.3f} m (tolerance {tol:g}), {wall / n * 1e3:.1f} ms per cycle: "
+            f"plan {split['plan']:.1f}, fly (host C++) {split['fly']:.2f}, measure + commit "
+            f"{split['measure_commit']:.2f}")
+    launches = kernels.launch_counts()
+    log(f"  launches in the deployment run: {launches}; commits {commits}, zero descent steps "
+        f"{descents}")
+    check(launches["spd_inverse"] == commits, "spd_inverse did not launch once per commit")
+    check(descents > 0 and launches["edge_factor_gain"] == descents,
+          "edge_factor_gain did not launch once per descent step")
+    check(launches["spd_trace_product"] > 0, "spd_trace_product was not launched (greedy sweeps)")
+    check(launches["spd_inverse_factor"] == 0, "spd_inverse_factor launched on the deploy path")
+    out.update(launches=launches, commits=commits, descent_steps=descents)
+
+    # the greedy loop with the kernels and with their plain versions
+    loop = sim_robot.ClosedLoopMission(cfg, greedy_mc, seed=7,
+                                       tracking_noise_std=DEPLOY_TRACKING_STD)
+    kernels.reset_launch_counts()
+    with_kernels = loop.run()
+    agree_launches = kernels.launch_counts()
+    with plain_versions():
+        plain = loop.run()
+    check(kernels.launch_counts() == agree_launches, "a kernel launched under plain_versions()")
+    check(agree_launches["spd_inverse"] > 0 and agree_launches["spd_trace_product"] > 0,
+          "the agreement loop launched no kernel")
+    check(with_kernels.to_json() == plain.to_json(),
+          "the flight logs differ between kernels and plain versions")
+    log(f"  greedy loop (noise {DEPLOY_TRACKING_STD}, {len(plain.waypoints)} cycles): flight logs "
+        f"identical with kernels and plain versions; launches with kernels {agree_launches}")
+    out["agreement"] = {"cycles": len(plain.waypoints), "identical": True,
+                        "launches": agree_launches}
+    return out
+
+
+# ------------------------------------------------------------ multi-device
+
+def grid_draws(world, gen: torch.Generator):
+    """A ground truth and GRID_STEPS steps of measurement noise (T, M)."""
+    gt = world.init_state(1, gen).ground_truth[0]
+    return gt, torch.randn((GRID_STEPS, world.H.shape[1]), generator=gen, device="cuda",
+                           dtype=world.dtype)
+
+
+def two_rank_worker(rank: int, workdir: pathlib.Path) -> int:
+    """One of two ranks on the one card over gloo (``--two-rank-worker``):
+    probe whether all_reduce, all_gather_into_tensor and all_to_all_single
+    take CUDA tensors; if all do, run the 20 x 20 sharded mission at mp = 2
+    from the parent's draws.  Rank 0 writes ``two_rank.json``."""
+    import torch.distributed as dist
+
+    from ipp_rl_tpu_torch.parallel import make_mesh
+    from ipp_rl_tpu_torch.parallel.large_grid import sharded_greedy_mission
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/store", rank=rank,
+                            world_size=2, timeout=datetime.timedelta(seconds=120))
+    try:
+        x = torch.full((4,), float(rank + 1), device="cuda", dtype=torch.float64)
+        probes = {
+            "all_reduce": lambda: dist.all_reduce(x.clone()),
+            "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+                torch.empty(8, device="cuda", dtype=torch.float64), x),
+            "all_to_all_single": lambda: dist.all_to_all_single(torch.empty_like(x), x),
+        }
+        probe = {}
+        for name, fn in probes.items():
+            try:
+                fn()
+                torch.cuda.synchronize()
+                probe[name] = "ok"
+            except Exception as e:  # the probe's finding, reported by the parent
+                probe[name] = f"{type(e).__name__}: {e}"[:300]
+        result = {"probe": probe}
+        if all(v == "ok" for v in probe.values()):
+            draws = torch.load(workdir / "draws.pt", map_location="cuda")
+            world = IPPWorld(large_grid_cfg(20), dtype=torch.float64)
+            t = time.perf_counter()
+            run = sharded_greedy_mission(make_mesh(mp=2), world, GRID_STEPS, noise=draws["noise"],
+                                         ground_truth=draws["gt"])
+            result.update(wall_s=time.perf_counter() - t, actions=run["actions"].tolist())
+            if rank == 0:
+                np.save(workdir / "final_cov.npy", run["final_cov"])
+        if rank == 0:
+            (workdir / "two_rank.json").write_text(json.dumps(result))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def two_rank_run(workdir: pathlib.Path) -> dict:
+    """Two subprocesses, one card, gloo; killed if they outlive their limit."""
+    workdir.mkdir(parents=True, exist_ok=True)
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for r in range(2):
+            out = open(workdir / f"rank{r}.log", "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--two-rank-worker", str(r),
+                 str(workdir)], cwd=ROOT, env=env, stdout=out, stderr=subprocess.STDOUT), out))
+        for proc, _ in procs:
+            proc.wait(timeout=max(1.0, TWO_RANK_TIMEOUT_S - (time.perf_counter() - t0)))
+    finally:
+        for proc, out in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+    for r, (proc, _) in enumerate(procs):
+        if proc.returncode != 0:
+            log((workdir / f"rank{r}.log").read_text()[-3000:])
+        check(proc.returncode == 0, f"two-rank worker {r} exited with {proc.returncode}")
+    result = json.loads((workdir / "two_rank.json").read_text())
+    result["wall_s_with_start"] = time.perf_counter() - t0
+    return result
+
+
+def multidevice_phase() -> dict:
+    """The multi-device path on the one card (phase 14)."""
+    import torch.distributed as dist
+
+    from ipp_rl_tpu_torch.parallel import initialize_multihost
+    from ipp_rl_tpu_torch.parallel import large_grid
+
+    log(f"== multi-device: world size 1 over NCCL; the 20x20 large-grid mission (float64, "
+        f"{GRID_STEPS} steps) sharded against dense; the {LARGE_GRID_DIM}x{LARGE_GRID_DIM} one "
+        f"(float32) timed; then two ranks on the card over gloo")
+    mesh = initialize_multihost()
+    out = {"backend": dist.get_backend(), "world_size": dist.get_world_size(),
+           "mesh": list(mesh.shape)}
+    try:
+        world = IPPWorld(large_grid_cfg(20), dtype=torch.float64)
+        gt, noise = grid_draws(world, torch.Generator(device="cuda").manual_seed(21))
+        sharded = large_grid.sharded_greedy_mission(mesh, world, GRID_STEPS, noise=noise,
+                                                    ground_truth=gt)
+        dense = large_grid.dense_greedy_mission(world, GRID_STEPS, noise=noise, ground_truth=gt)
+        check(len(sharded["actions"]) == GRID_STEPS, f"{len(sharded['actions'])} steps taken")
+        check(np.array_equal(sharded["actions"], dense["actions"]),
+              "sharded and dense 20x20 missions chose different actions")
+        cov_err = float(np.abs(sharded["final_cov"] - dense["final_cov"]).max())
+        mean_err = float(np.abs(sharded["final_mean"] - dense["final_mean"]).max())
+        check(cov_err <= 1e-8 and mean_err <= 1e-8, f"20x20: cov {cov_err:.2e}, mean {mean_err:.2e}")
+        check(sharded["uncertainty"][-1] < sharded["uncertainty"][0], "20x20: uncertainty rose")
+        log(f"  20x20 (N 400, A 800): actions {sharded['actions'].tolist()} identical sharded and "
+            f"dense; final cov max diff {cov_err:.2e}, mean {mean_err:.2e} (tolerance 1e-8)")
+        out["grid20"] = {"actions": sharded["actions"].tolist(), "cov_err": cov_err,
+                         "mean_err": mean_err, "uncertainty": sharded["uncertainty"].tolist()}
+
+        t0 = time.perf_counter()
+        big = IPPWorld(large_grid_cfg(LARGE_GRID_DIM))
+        build_s = time.perf_counter() - t0
+        N, (A, M) = LARGE_GRID_DIM ** 2, big.H.shape[:2]
+        bgt, bnoise = grid_draws(big, torch.Generator(device="cuda").manual_seed(22))
+        large_grid.dense_greedy_mission(big, 1, noise=bnoise, ground_truth=bgt)  # warm-up
+        # the mission's set-up (the GP prior of an N x N belief) is timed apart
+        meter = PartMeter()
+        meter.wrap(big, "init_state", "init")
+        timer = PhaseTimer()
+        saved = {name: getattr(dist, name) for name in
+                 ("all_reduce", "all_gather_into_tensor", "all_to_all_single")}
+        saved.update({name: getattr(large_grid, name) for name in
+                      ("sharded_sweep_gains", "sharded_kf_update")})
+        timer.wrap(large_grid, "sharded_sweep_gains", "sweep")
+        timer.wrap(large_grid, "sharded_kf_update", "commit")
+        for name in ("all_reduce", "all_gather_into_tensor", "all_to_all_single"):
+            timer.wrap(dist, name, "collectives")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            run = large_grid.sharded_greedy_mission(mesh, big, GRID_STEPS, noise=bnoise,
+                                                    ground_truth=bgt)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = kernels.launch_counts()
+        finally:
+            for name, fn in saved.items():
+                setattr(dist if name.startswith("all_") else large_grid, name, fn)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        steps = len(run["actions"])
+        init_s = meter.seconds["init"][0]
+        wall -= init_s
+        split = {k: v / steps for k, v in timer.ms().items()}
+        check(steps == GRID_STEPS, f"{LARGE_GRID_DIM}x{LARGE_GRID_DIM}: {steps} steps taken")
+        check(bool(np.isfinite(run["final_cov"]).all()), "large grid: non-finite covariance")
+        check(run["uncertainty"][-1] < run["uncertainty"][0], "large grid: uncertainty rose")
+        check(launches["spd_inverse"] == 2 * steps,
+              "spd_inverse did not launch twice per step (the sweep's and the commit's)")
+        t0 = time.perf_counter()
+        dense_big = large_grid.dense_greedy_mission(big, GRID_STEPS, noise=bnoise,
+                                                    ground_truth=bgt)
+        torch.cuda.synchronize()
+        dense_wall = time.perf_counter() - t0 - meter.seconds["init"][1]
+        check(np.array_equal(run["actions"], dense_big["actions"]),
+              f"{LARGE_GRID_DIM}x{LARGE_GRID_DIM}: sharded and dense chose different actions")
+        log(f"  {LARGE_GRID_DIM}x{LARGE_GRID_DIM} (N {N}, A {A}, M {M}; world built in "
+            f"{build_s:.1f} s, a mission's set-up {init_s:.2f} s): sharded "
+            f"{wall / steps * 1e3:.1f} ms per step (sweep {split['sweep']:.1f}, commit "
+            f"{split['commit']:.2f}, collectives {split['collectives']:.3f} ms by CUDA events, "
+            f"nested), dense {dense_wall / steps * 1e3:.1f} ms per step, same actions; peak "
+            f"{peak:.2f} GB; launches {launches}")
+        out["grid_large"] = {"dim": LARGE_GRID_DIM, "N": N, "A": A, "M": M, "build_s": build_s,
+                             "init_s": init_s,
+                             "ms_per_step": wall / steps * 1e3, "split_ms": split,
+                             "dense_ms_per_step": dense_wall / steps * 1e3, "peak_mem_gb": peak,
+                             "uncertainty": [float(run["uncertainty"][0]),
+                                             float(run["uncertainty"][-1])],
+                             "actions": run["actions"].tolist()}
+        out["launches"] = launches
+
+        workdir = ROOT / "chiprun_out" / "multidevice"
+        shutil.rmtree(workdir, ignore_errors=True)
+        workdir.mkdir(parents=True)
+        torch.save({"gt": gt.cpu(), "noise": noise.cpu()}, workdir / "draws.pt")
+        two = two_rank_run(workdir)
+        if all(v == "ok" for v in two["probe"].values()):
+            cov2 = np.load(workdir / "final_cov.npy")
+            err2 = float(np.abs(cov2 - sharded["final_cov"]).max())
+            check(two["actions"] == out["grid20"]["actions"],
+                  "two ranks chose other actions than one")
+            check(err2 <= 1e-8, f"two ranks: final cov differs by {err2:.2e}")
+            two["cov_err_vs_one_rank"] = err2
+            log(f"  two ranks on the card over gloo (CUDA tensors staged through the host): "
+                f"20x20 actions identical to one rank's, final cov max diff {err2:.2e}; mission "
+                f"{two['wall_s']:.1f} s, {two['wall_s_with_start']:.1f} s with the processes' start")
+        else:
+            log(f"  two ranks on the card over gloo: not run, gloo refused CUDA tensors for "
+                + ", ".join(f"{k} ({v})" for k, v in two["probe"].items() if v != "ok"))
+        out["two_ranks"] = two
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs an NVIDIA card",
@@ -2026,6 +2494,11 @@ def main() -> int:
     lib_path = kernels.build()
     build_s = time.perf_counter() - t0
     log(f"build: {lib_path.name} in {build_s:.1f} s (nvcc {kernels.build_seconds:.1f} s)")
+    t0 = time.perf_counter()
+    traj_lib = pathlib.Path(trajgen.build_library())
+    build_s += time.perf_counter() - t0
+    log(f"build: {traj_lib.name} (g++ {' '.join(trajgen.GXX_FLAGS)}) in "
+        f"{time.perf_counter() - t0:.1f} s")
     report = lib_path.with_suffix(".log")
     if report.exists():  # the compiler's register/spill report for the M = 9 f32 kernels
         show = False
@@ -2063,13 +2536,17 @@ def main() -> int:
     classic = timed("classic", classic_phase, cfg)
     classic_agreement = timed("classic_agreement", classic_agreement_phase, cfg)
     entry_points = timed("entry_points", entry_points_phase)
+    deploy = timed("deploy", deploy_phase, cfg)
+    multidevice = timed("multidevice", multidevice_phase)
     pr6_s = phase_s["static"] + phase_s["cmaes"] + phase_s["cmaes_agreement"]
     pr7_s = phase_s["classic"] + phase_s["classic_agreement"] + phase_s["entry_points"]
+    pr8_s = phase_s["deploy"] + phase_s["multidevice"]
     log(f"phase seconds: build {build_s:.1f}, " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
         + f"; training: learn {training['learn_wall_s']:.1f}, fixed-batch check "
         f"{training['loss_check_s']:.1f}, arena gate {training['arena_wall_s']:.1f}; "
         f"static + cmaes + cmaes_agreement {pr6_s:.1f} (allowance 60); "
-        f"classic + classic_agreement + entry_points {pr7_s:.1f} (allowance 120)")
+        f"classic + classic_agreement + entry_points {pr7_s:.1f} (allowance 120); "
+        f"deploy + multidevice {pr8_s:.1f} (allowance {NEW_PHASES_ALLOWANCE_S})")
     for r in rows:  # over the main paths, each counted from 0
         r["launches_by_path"] = {"greedy": greedy["launches"][r["name"]],
                                  "zero": zero["launches"][r["name"]],
@@ -2077,7 +2554,9 @@ def main() -> int:
                                  "static": static["launches"][r["name"]],
                                  "cmaes": cmaes_run["launches"][r["name"]],
                                  "classic": classic["launches"][r["name"]],
-                                 "experiment": entry_points["launches"][r["name"]]}
+                                 "experiment": entry_points["launches"][r["name"]],
+                                 "deploy": deploy["launches"][r["name"]],
+                                 "multidevice": multidevice["launches"][r["name"]]}
         r["launches"] = sum(r["launches_by_path"].values())
 
     out_dir = ROOT / "chiprun_out"
@@ -2090,6 +2569,7 @@ def main() -> int:
         "training_agreement": training_agreement, "static": static, "cmaes": cmaes_run,
         "cmaes_agreement": cmaes_agreement, "classic": classic,
         "classic_agreement": classic_agreement, "entry_points": entry_points,
+        "deploy": deploy, "multidevice": multidevice,
     }, indent=1))
 
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
@@ -2102,4 +2582,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--two-rank-worker"]:
+        sys.exit(two_rank_worker(int(sys.argv[2]), pathlib.Path(sys.argv[3])))
     sys.exit(main())

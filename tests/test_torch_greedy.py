@@ -104,3 +104,42 @@ def test_greedy_search_horizon_matches_jax(small_cfg):
     np.testing.assert_array_equal(got_ok.numpy(), np.asarray(want_ok))
     assert not got_ok.numpy().all()
     np.testing.assert_array_equal(got_a.numpy()[got_ok.numpy()], np.asarray(want_a)[np.asarray(want_ok)])
+
+
+@pytest.fixture(scope="module")
+def canonical_runs(canonical_cfg):
+    """The canonical config (the port's own copy of example.yaml against the
+    JAX package's) in float64: B = 4 missions for 10 steps, JAX's noise."""
+    from ipp_rl_tpu_torch.config import CONFIG_DIR, load_config
+
+    B, T = 4, 10
+    jworld = JaxWorld(canonical_cfg, dtype=jnp.float64)
+    key = jax.random.key(5)
+    want = JaxGreedy(jworld, JaxMissionConfig(type="greedy")).run(key, B, max_steps=T)
+    state0, noise = jax_run_draws(jworld, key, B, T)
+    world = IPPWorld(load_config(str(CONFIG_DIR / "example.yaml")), dtype=torch.float64,
+                     device="cpu")
+    got = GreedyPlanner(world, MissionConfig(type="greedy")).run(
+        B, max_steps=T,
+        init_state=belief_state_from_arrays(state0, device="cpu", dtype=torch.float64),
+        noise=noise_from_arrays(noise, device="cpu", dtype=torch.float64),
+    )
+    return want, got
+
+
+def test_greedy_canonical_actions_identical(canonical_runs):
+    want, got = canonical_runs
+    assert got.waypoints.shape == (4, 10, 3)
+    np.testing.assert_array_equal(got.waypoints, np.asarray(want.waypoints))
+    np.testing.assert_array_equal(got.num_steps, np.asarray(want.num_steps))
+
+
+def test_greedy_canonical_metric_curves_match(canonical_runs):
+    """rtol 1e-10: the same float64 products, summed in other orders."""
+    want, got = canonical_runs
+    assert set(got.metrics) == set(want.metrics)
+    for name in want.metrics:
+        np.testing.assert_allclose(got.metrics[name], want.metrics[name], rtol=1e-10)
+    np.testing.assert_allclose(got.budgets, want.budgets, rtol=1e-10)
+    unc = got.metrics["uncertainty"]
+    assert np.all(np.diff(unc, axis=1) < 0)

@@ -568,3 +568,87 @@ def test_classic_search_on_card_matches_cpu(cuda):
     for f in CLASSIC_TREE[5:]:
         torch.testing.assert_close(getattr(got, f).cpu(), getattr(want, f), rtol=1e-9, atol=1e-12)
     assert torch.equal(got_stats.best_child_action.cpu(), want_stats.best_child_action)
+
+
+def _committed_state(world, B, seed, steps=3):
+    gen = torch.Generator(device=world.device).manual_seed(seed)
+    state = world.init_state(B, gen)
+    for _ in range(steps):
+        a = torch.randint(0, world.num_actions, (B,), generator=gen, device=world.device)
+        state = world.step_index(state, a, generator=gen)
+    return state, gen
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_deployed_batch_of_one_is_bitwise_plain(cuda, dtype):
+    """The deployed mission's shapes (one mission): each K2 launch of a
+    greedy sweep, the commit's S for K1, and a zero replan's edge update,
+    bitwise against their plain versions."""
+    from ipp_rl_tpu_torch.ops.rewards import adaptive_mask
+    from ipp_rl_tpu_torch.planners.base import sweep_rewards
+
+    cfg = load_config(str(CONFIG_DIR / "example.yaml"))
+    world = IPPWorld(cfg, dtype=dtype)
+    state, gen = _committed_state(world, 1, seed=9)
+    recorded, launch = [], kernels.spd_trace_product_packed
+
+    def record(S, G):
+        recorded.append((S, G))
+        return launch(S, G)
+
+    record.launches = 0
+    kernels.spd_trace_product_packed = record
+    try:
+        sweep_rewards(world, state)
+    finally:
+        kernels.spd_trace_product_packed = launch
+    assert sorted(tuple(S.shape) for S, _ in recorded) == [(1, 45, 100), (100, 45, 1)]
+    for S, G in recorded:
+        assert torch.equal(kernels.spd_trace_product_packed(S, G),
+                           smallchol.spd_trace_product_packed(S, G))
+    a = torch.randint(0, world.num_actions, (1,), generator=gen, device=cuda)
+    H = world.H[a]
+    A = H @ state.cov
+    S = A @ H.mT
+    S_commit = (0.5 * (S + S.mT) + torch.diag_embed(world.R_diag[a])).contiguous()
+    assert torch.equal(kernels.spd_inverse(S_commit), smallchol.spd_inverse(S_commit))
+    scen = cfg.scenario
+    mask = adaptive_mask(state.mean, torch.diagonal(state.cov, dim1=-2, dim2=-1),
+                         scen.value_threshold, scen.interval_factor)
+    args = (S, A, world.R_diag, a, mask)
+    for got, want in zip(kernels.edge_factor_gain(*args), smallchol.edge_factor_gain(*args)):
+        assert torch.equal(got, want)
+
+
+def test_sharded_kalman_at_world_size_one_on_nccl(cuda):
+    """parallel/sharded_kalman.py on a one-rank NCCL group: the row-sharded
+    commit against the dense (Joseph) commit, float64 atol 1e-10, P'
+    exactly symmetric; the action-sharded sweep equal to the dense one."""
+    import torch.distributed as dist
+
+    from ipp_rl_tpu_torch.ops.kalman import kf_sweep_gains, kf_update
+    from ipp_rl_tpu_torch.ops.rewards import adaptive_mask
+    from ipp_rl_tpu_torch.parallel import make_mesh
+    from ipp_rl_tpu_torch.parallel.sharded_kalman import sharded_kf_update, sharded_sweep_gains
+
+    cfg = load_config(str(CONFIG_DIR / "example.yaml"))
+    world = IPPWorld(cfg, dtype=torch.float64)
+    state, gen = _committed_state(world, 1, seed=10)
+    P, mean = state.cov[0], state.mean[0]
+    a = int(torch.randint(0, world.num_actions, (1,), generator=gen, device=cuda))
+    z = torch.rand((world.H.shape[1],), generator=gen, device=cuda, dtype=torch.float64)
+    scen = cfg.scenario
+    mask = adaptive_mask(mean, torch.diagonal(P), scen.value_threshold, scen.interval_factor)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_mesh(mp=1)
+        for zz in (z, None):
+            mean_s, P_s = sharded_kf_update(mesh, P, mean, world.H[a], world.R_diag[a], zz)
+            mean_d, P_d = kf_update(P, mean, world.H[a], world.R_diag[a], zz)
+            torch.testing.assert_close(P_s, P_d, atol=1e-10, rtol=0)
+            torch.testing.assert_close(mean_s, mean_d, atol=1e-10, rtol=0)
+            assert torch.equal(P_s, P_s.mT)
+        gains = sharded_sweep_gains(mesh, P, world.H, world.R_diag, mask)
+        assert torch.equal(gains, kf_sweep_gains(P, world.H, world.R_diag, mask))
+    finally:
+        dist.destroy_process_group()

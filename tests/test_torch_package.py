@@ -120,7 +120,10 @@ def test_no_public_device_default_is_the_cpu():
     assert offenders == []
     for fn in ("planners.zero.mcts.init_tree", "ops.kalman.prepare_batched_sweep",
                "planners.zero.train.init_train_state", "env.world.IPPWorld.__init__",
-               "experiments.experiment.Experiment.__init__"):
+               "experiments.experiment.Experiment.__init__",
+               "ros.mission_node.IPPMissionNode.__init__",
+               "ros.sim_robot.ClosedLoopMission.__init__", "parallel.mesh.make_mesh",
+               "parallel.mesh.initialize_multihost"):
         assert f"ipp_rl_tpu_torch.{fn}" in checked
 
 
@@ -128,7 +131,8 @@ def test_entry_point_modules_run_nothing_when_imported(tmp_path):
     """Importing the entry points parses no arguments, writes no file and
     prints nothing: their work runs under the ``__main__`` check."""
     code = ("import sys; sys.argv = ['x', '--bogus']\n"
-            "import ipp_rl_tpu_torch.main, ipp_rl_tpu_torch.tools.train_zero\n")
+            "import ipp_rl_tpu_torch.main, ipp_rl_tpu_torch.tools.train_zero\n"
+            "import ipp_rl_tpu_torch.ros.mission_node, ipp_rl_tpu_torch.ros.sim_robot\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, capture_output=True,
                           text=True, timeout=120, env={**os.environ, "PYTHONPATH": str(ROOT)})
     assert proc.returncode == 0, proc.stderr
