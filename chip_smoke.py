@@ -182,6 +182,35 @@ Phases, each of which fails the run on a failed check (none is caught):
    ``edge_factor_gain`` at B = 1 (the deployed shapes) and ``spd_inverse``
    at the large-grid sweep's (A, 9, 9) and the sharded commit's (9, 9), in
    float32 and float64.
+15. quality (allowance ``QUALITY_ALLOWANCE_S``): (a) the greedy mission on
+   example.yaml's field at 2 m (``FINE_GRID``: M = 25, A = 800, N = 400, the
+   kernels' large-M route) at B = ``FINE_B`` for ``FINE_STEPS`` steps with
+   the kernels and with their plain versions from one state and noise:
+   actions identical, beliefs bitwise equal, ``spd_inverse`` and
+   ``spd_trace_product`` launched; (b) the quality tool's evaluation
+   (``tools/quality_vs_runtime.evaluate``) on the committed worlds
+   (runs/quality_torch/worlds_s12345_b32.npz, the JAX script's) at the
+   committed JAX reference's settings (runs/quality_torch/jax_reference.json:
+   B = 32 whole budget-200 missions of 45 steps, greedy, random, CMA-ES,
+   the committed checkpoint at 0 simulations and at 16 in clean mode,
+   classic MCTS cut to 8 simulations), the counters set to 0 before and
+   read after: for each row and each of the final tr(P) and RMSE, the
+   per-world differences d from the reference must keep |mean d| ≤
+   3·sd(d)/√32, and the rows' order by final tr(P) must be the reference's
+   wherever the reference separates two rows by more than their bounds;
+   (c) ``tools/eval_snapshots`` on a copy of the committed run directory
+   (the deployed checkpoint, ``SNAPSHOT_SIMS`` simulations,
+   ``SNAPSHOT_STEPS`` steps, B = 32, the committed worlds): its deploy row
+   equals the quality tool's row for the same planner, worlds, steps and
+   seed, both under deterministic algorithms.  Phase 2 also holds the four
+   kernels' large-M route (M = 13..32, one warp per matrix) at M = 13, 25
+   and 32 in float32 and float64: ``spd_inverse`` at (4096, M, M), on
+   clamped pivots and (M = 25) on a fine-grid commit's S;
+   ``spd_trace_product`` on the fine grid's two sweep launches at B = 256
+   ((256, 325, 400), (400, 325, 256)) and on (256, T, 400) random blocks for
+   M = 13 and 32; ``spd_inverse_factor`` at (1024, M, M);
+   ``edge_factor_gain`` at (1024, M, 400) with a per-mission mask (M = 25: a
+   fine-grid descent step's inputs); and times each at M = 25 as at M = 9.
 
 Float32 products run in full float32: TF32 is switched off for matmuls
 and cuDNN.  The last stdout line is ``{"ok": true, "device": {...}}``;
@@ -207,6 +236,7 @@ import time
 
 import numpy as np
 import torch
+import yaml
 
 from ipp_rl_tpu_torch.config import CONFIG_DIR, MissionConfig, config_from_dict, load_config
 from ipp_rl_tpu_torch.env.world import IPPWorld
@@ -237,6 +267,8 @@ from ipp_rl_tpu_torch.planners.zero.train import (
     reset_optimizer,
 )
 from ipp_rl_tpu_torch.serialization import read_checkpoint
+from ipp_rl_tpu_torch.tools import eval_snapshots
+from ipp_rl_tpu_torch.tools import quality_vs_runtime as qvr
 from ipp_rl_tpu_torch.trajgen import planner as trajgen
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -311,6 +343,18 @@ CHECKPOINT = ROOT / "runs" / "zero_canon_r5_best" / "checkpoints" / "shared_net.
 # the committed checkpoint's hyper-parameters (tests/test_learning_artifact.py)
 CHECKPOINT_HP = dict(num_channels=64, num_encoder_res_blocks=6, num_global_pooling_channels=32,
                      max_valid_action_distance=11.5, unfloored_value_head=True)
+# phase 2's large-M route and phase 15: example.yaml's field on 20 x 20
+# cells of 2 m has M = 25, A = 800, N = 400 (a finer grid than any config
+# of the repository); the greedy mission on it, B x steps
+FINE_GRID = {"x_dim": 20, "y_dim": 20, "resolution": 2}
+FINE_B, FINE_STEPS = 256, 4
+LARGE_M_CHECKED = (13, 25, 32)
+# phase 15: the committed JAX reference (tests/test_torch_quality.py writes
+# it) and its worlds; eval_snapshots' cut (16 simulations, 8 steps)
+QUALITY_WORLDS = ROOT / "runs" / "quality_torch" / "worlds_s12345_b32.npz"
+QUALITY_REFERENCE = ROOT / "runs" / "quality_torch" / "jax_reference.json"
+SNAPSHOT_SIMS, SNAPSHOT_STEPS = 16, 8
+QUALITY_ALLOWANCE_S = 150
 # the kernels repeat their plain versions' operations in the same order,
 # one rounding each: they are held to bitwise equality; the metric curves
 # of the agreement phase to this relative tolerance
@@ -440,9 +484,10 @@ def bound(bytes_moved: float, ops: float) -> tuple:
 
 # ------------------------------------------------------------ kernel phase
 
-def random_spd(n: int, gen: torch.Generator) -> torch.Tensor:
-    A = torch.randn((n, M, M), generator=gen, device="cuda")
-    return A @ A.mT + 0.5 * torch.eye(M, device="cuda")
+def random_spd(n: int, gen: torch.Generator, m: int = M,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    A = torch.randn((n, m, m), generator=gen, device="cuda", dtype=dtype)
+    return A @ A.mT + 0.5 * torch.eye(m, device="cuda", dtype=dtype)
 
 
 def make_indefinite(S: torch.Tensor) -> torch.Tensor:
@@ -453,8 +498,9 @@ def make_indefinite(S: torch.Tensor) -> torch.Tensor:
 
 
 def packed(S: torch.Tensor, outer: int, inner: int) -> torch.Tensor:
-    """(outer * inner, M, M) blocks → the kernel's (outer, T, inner) layout."""
-    return smallchol.pack_lower(S).view(outer, inner, T).transpose(1, 2).contiguous()
+    """(outer * inner, m, m) blocks → the kernel's (outer, T, inner) layout."""
+    t = smallchol.packed_size(S.shape[-1])
+    return smallchol.pack_lower(S).view(outer, inner, t).transpose(1, 2).contiguous()
 
 
 def compare_with_nan(name: str, got: torch.Tensor, want: torch.Tensor) -> None:
@@ -573,7 +619,12 @@ def kernel_phase(gen: torch.Generator) -> list:
     continuous = continuous_shape_checks(gen)
     classic = classic_shape_checks(gen)
     deploy = deploy_shape_checks(gen)
+    large = large_m_rows(gen)
     for r in rows:
+        r["m_range"] = large[r["name"]]["m_range"]
+        r["m25"] = large[r["name"]]["m25"]
+        r["large_m_checks"] = large[r["name"]]["checks"]
+        r["max_abs_err"] = max(r["max_abs_err"], large[r["name"]]["max_abs_err"])
         if r["name"] in continuous:
             r["continuous_checks"] = continuous[r["name"]]
         if r["name"] in classic:
@@ -906,6 +957,154 @@ def deploy_shape_checks(gen: torch.Generator) -> dict:
         errs["spd_inverse"].append(compare(f"spd_inverse sharded commit (9, 9) {dtype}",
                                            kernels.spd_inverse(S), smallchol.spd_inverse(S)))
     return {k: {key: max(e[key] for e in v) for key in v[0]} for k, v in errs.items()}
+
+
+# ------------------------------------------------------------ large-M route
+
+def fine_grid_cfg():
+    """example.yaml's field on FINE_GRID (20 x 20 cells of 2 m): M = 25,
+    A = 800, N = 400."""
+    with open(CONFIG_DIR / "example.yaml") as f:
+        raw = yaml.safe_load(f)
+    raw["environment"] = dict(FINE_GRID)
+    return config_from_dict(raw)
+
+
+def unpacked(Sp: torch.Tensor) -> torch.Tensor:
+    """(outer, T, inner) packed lower triangles → (outer * inner, m, m) full
+    symmetric blocks (for the library call)."""
+    outer, t, inner = Sp.shape
+    m = smallchol.packed_m(t)
+    flat = Sp.transpose(1, 2).reshape(outer * inner, t)
+    full = torch.zeros((outer * inner, m, m), dtype=Sp.dtype, device=Sp.device)
+    i, j = torch.tril_indices(m, m, device=Sp.device)
+    full[:, i, j] = flat
+    full[:, j, i] = flat
+    return full
+
+
+def random_edge_inputs(B: int, m: int, n: int, dtype: torch.dtype, gen: torch.Generator):
+    """S_raw = A·Hᵀ, A = H·P (one SPD P), an R table of 7 actions, actions
+    and a per-mission 0/1 mask, for an M no world of the repository has."""
+    X = torch.randn((n, n), generator=gen, device="cuda", dtype=torch.float64)
+    P = X @ X.T / n + 0.1 * torch.eye(n, device="cuda", dtype=torch.float64)
+    H = torch.randn((B, m, n), generator=gen, device="cuda", dtype=torch.float64) / n ** 0.5
+    A = H @ P
+    R = torch.rand((7, m), generator=gen, device="cuda", dtype=torch.float64) + 0.5
+    a = torch.randint(0, 7, (B,), generator=gen, device="cuda")
+    mask = (torch.rand((B, n), generator=gen, device="cuda") > 0.4).to(dtype)
+    return (A @ H.mT).to(dtype), A.to(dtype), R.to(dtype), a, mask
+
+
+def large_m_rows(gen: torch.Generator) -> dict:
+    """The large-M route (M = 13..32, one warp per matrix) bitwise against
+    the plain versions at M = 13, 25 and 32 in float32 and float64, then
+    timed at M = 25 on FINE_GRID's shapes: ``spd_inverse`` at (4096, M, M)
+    and on a commit's S of the fine grid (B = 256), ``spd_trace_product``
+    on the fine grid's two sweep launches at B = 256 ((256, 325, 400)
+    gather, (400, 325, 256) dense; random blocks at (256, T, 400) for M = 13
+    and 32), ``spd_inverse_factor`` at (1024, M, M), ``edge_factor_gain`` at
+    (1024, M, 400) with a per-mission mask (at M = 25 one descent step's
+    inputs on the fine grid).  Returns per kernel name its checks and its M
+    = 25 times, bound and library call (float32)."""
+    log("  large-M route: M = 13, 25, 32 in float32 and float64; M = 25 on the "
+        f"{FINE_GRID['x_dim']}x{FINE_GRID['y_dim']} grid at resolution {FINE_GRID['resolution']}")
+    out = {name: {"m_range": "1-32", "checks": []} for name in
+           ("spd_inverse", "spd_trace_product", "spd_inverse_factor", "edge_factor_gain")}
+    world = IPPWorld(fine_grid_cfg(), fast_sweeps=True)
+    check(world.H.shape[1] == 25 and world.m_max_cont == 25,
+          f"the fine grid's M is {world.H.shape[1]} (continuous {world.m_max_cont}), not 25")
+    state = world.init_state(FINE_B, gen)
+    for _ in range(3):
+        step = torch.randint(0, world.num_actions, (FINE_B,), generator=gen, device="cuda")
+        state = world.step_index(state, step, generator=gen)
+    sweep = record_trace_products(sweep_rewards, world, state)
+    shapes = sorted(tuple(Sp.shape) for Sp, _ in sweep)
+    check(shapes == [(FINE_B, 325, 400), (400, 325, FINE_B)],
+          f"the fine grid's sweep launches have shapes {shapes}")
+    commit = descent_step_inputs(world, FINE_B, gen)
+    S_commit = commit[0] + torch.diag_embed(commit[2][commit[3]])
+    S_commit = (0.5 * (S_commit + S_commit.mT)).contiguous()
+    edge25 = descent_step_inputs(world, ZERO_B, gen)
+
+    def record(name, label, got, want):
+        out[name]["checks"].append({label: compare(f"{name} {label}", got, want)})
+
+    for m in LARGE_M_CHECKED:
+        for dtype in (torch.float32, torch.float64):
+            tag = f"M={m} {str(dtype)[6:]}"
+            S = random_spd(REPLAN_B, gen, m, dtype)
+            record("spd_inverse", f"(4096, {m}, {m}) {tag}", kernels.spd_inverse(S),
+                   smallchol.spd_inverse(S))
+            S_bad = make_indefinite(random_spd(33, gen, m, dtype))
+            record("spd_inverse", f"clamped {tag}", kernels.spd_inverse(S_bad),
+                   smallchol.spd_inverse(S_bad))
+            S = random_spd(ZERO_B, gen, m, dtype)
+            for got, want, part in zip(kernels.spd_inverse_factor(S),
+                                       smallchol.spd_inverse_factor(S), ("S^-1", "U")):
+                record("spd_inverse_factor", f"(1024, {m}, {m}) {tag} {part}", got, want)
+            if m == 25:
+                record("spd_inverse", f"a commit's S (256, 25, 25) {tag}",
+                       kernels.spd_inverse(S_commit.to(dtype)),
+                       smallchol.spd_inverse(S_commit.to(dtype)))
+                launches = [(Sp.to(dtype), Gp.to(dtype)) for Sp, Gp in sweep]
+                edge = [x.to(dtype) if x.is_floating_point() else x for x in edge25]
+            else:
+                n = FINE_B * 400
+                launches = [(packed(random_spd(n, gen, m, dtype), FINE_B, 400),
+                             packed(random_spd(n, gen, m, dtype), FINE_B, 400))]
+                edge = random_edge_inputs(ZERO_B, m, 400, dtype, gen)
+            for Sp, Gp in launches:
+                record("spd_trace_product", f"{tuple(Sp.shape)} {tag}",
+                       kernels.spd_trace_product_packed(Sp, Gp),
+                       smallchol.spd_trace_product_packed(Sp, Gp))
+            for got, want, part in zip(kernels.edge_factor_gain(*edge),
+                                       smallchol.edge_factor_gain(*edge), ("WcT", "gain")):
+                record("edge_factor_gain", f"{tuple(edge[1].shape)} {tag} {part}", got, want)
+
+    # M = 25, float32: device, call and host times, bound, plain and library
+    def timed(name, fn, plain, library, nbytes, ops, graph_launches, shape):
+        t = times(fn, graph_launches=graph_launches, calls=graph_launches)
+        b_ms, b_by = bound(nbytes, ops)
+        out[name]["m25"] = {
+            "shape": shape, "dtype": "float32", **t,
+            "plain_ms": cuda_ms(plain, 2, warmup=1), "library_ms": cuda_ms(library, 5),
+            "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": nbytes,
+        }
+
+    S = random_spd(REPLAN_B, gen, 25, torch.float32)
+    timed("spd_inverse", lambda: kernels.spd_inverse(S), lambda: smallchol.spd_inverse(S),
+          lambda: torch.cholesky_inverse(torch.linalg.cholesky(S)), 2 * S.numel() * 4,
+          REPLAN_B * inverse_ops(25), 100, list(S.shape))
+    fulls = [(unpacked(Sp), unpacked(Gp)) for Sp, Gp in sweep]
+    blocks = sum(Sp.shape[0] * Sp.shape[2] for Sp, _ in sweep)
+    timed("spd_trace_product",
+          lambda: [kernels.spd_trace_product_packed(Sp, Gp) for Sp, Gp in sweep],
+          lambda: [smallchol.spd_trace_product_packed(Sp, Gp) for Sp, Gp in sweep],
+          lambda: [torch.cholesky_solve(G, torch.linalg.cholesky(S_))
+                   .diagonal(dim1=-2, dim2=-1).sum(-1) for S_, G in fulls],
+          (2 * 325 + 1) * blocks * 4, blocks * trace_ops(25), 10, [blocks, 325])
+    del fulls
+    S = random_spd(ZERO_B, gen, 25, torch.float32)
+    timed("spd_inverse_factor", lambda: kernels.spd_inverse_factor(S),
+          lambda: smallchol.spd_inverse_factor(S),
+          lambda: torch.linalg.cholesky(torch.cholesky_inverse(torch.linalg.cholesky(S))),
+          3 * S.numel() * 4, ZERO_B * inverse_factor_ops(25), 100, list(S.shape))
+    S_raw, A, R, a, mask = edge25
+    B, m, n = A.shape
+    nbytes = ((S_raw.numel() + 2 * A.numel() + B + B * m + mask.numel()) * 4
+              + a.numel() * a.element_size())
+    timed("edge_factor_gain", lambda: kernels.edge_factor_gain(*edge25),
+          lambda: smallchol.edge_factor_gain(*edge25), lambda: library_edge_tail(*edge25),
+          nbytes, B * edge_ops(m, n, masked=True, round_bf16=False), 100, [B, m, n])
+    for name, v in out.items():
+        t = v["m25"]
+        log(f"  {name} M=25 {t['shape']}: kernel {t['ms']:.4f} ms device (graph), "
+            f"{t['call_ms']:.4f} ms per call, host {t['host_ms']:.4f} ms; plain "
+            f"{t['plain_ms']:.3f} ms, library {t['library_ms']:.3f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}), {t['bound_ms'] / t['ms']:.1%} of it")
+        v["max_abs_err"] = max(e["max_abs_err"] for c in v["checks"] for e in c.values())
+    return out
 
 
 # ------------------------------------------------------------ greedy slice
@@ -2475,6 +2674,187 @@ def multidevice_phase() -> dict:
     return out
 
 
+# ------------------------------------------------------------ quality
+
+def _d_stats(port: list, ref: list) -> dict:
+    """d_i = port_i − ref_i over the matched worlds: its mean, its standard
+    deviation and the bound 3·sd/√n that |mean d| must not pass."""
+    d = np.asarray(port, dtype=np.float64) - np.asarray(ref, dtype=np.float64)
+    sd = float(d.std(ddof=1)) if d.size > 1 else 0.0
+    bound_ = float(3.0 * sd / np.sqrt(d.size))
+    mean = float(d.mean())
+    return {"mean_d": mean, "sd_d": sd, "bound": bound_, "ok": bool(abs(mean) <= bound_)}
+
+
+def fine_grid_greedy(gen: torch.Generator) -> dict:
+    """(a) the greedy mission on FINE_GRID (M = 25) at B = FINE_B for
+    FINE_STEPS steps with the kernels and with their plain versions, from
+    one state and one injected noise."""
+    world = IPPWorld(fine_grid_cfg(), fast_sweeps=True)
+    planner = GreedyPlanner(world, MissionConfig(type="greedy"))
+    state0 = world.init_state(FINE_B, gen)
+    noise = torch.randn((FINE_STEPS, FINE_B, world.H.shape[1]), generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with_kernels = planner.run(FINE_B, FINE_STEPS, init_state=state0, noise=noise)
+    torch.cuda.synchronize()
+    kernel_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    t0 = time.perf_counter()
+    with plain_versions():
+        plain = planner.run(FINE_B, FINE_STEPS, init_state=state0, noise=noise)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    check(kernels.launch_counts() == launches, "a kernel launched under plain_versions()")
+    for name in ("spd_inverse", "spd_trace_product"):
+        check(launches[name] > 0, f"{name} was not launched on the fine-grid greedy mission")
+    check(np.array_equal(with_kernels.waypoints, plain.waypoints, equal_nan=True),
+          "fine grid: the kernels and the plain versions chose different actions")
+    for f in ("mean", "cov", "budget"):
+        check(torch.equal(getattr(with_kernels.final_state, f), getattr(plain.final_state, f)),
+              f"fine grid: the beliefs' {f} differ between kernels and plain versions")
+    unc = with_kernels.metrics["uncertainty"].mean(axis=0)
+    check(bool(np.all(np.diff(unc) < 0)), "fine grid: uncertainty does not fall step over step")
+    log(f"  (a) fine grid (M = 25, A = {world.num_actions}, N = {world.H.shape[2]}), B = "
+        f"{FINE_B} x {FINE_STEPS} steps: actions identical, beliefs bitwise equal; launches "
+        f"{launches}; {kernel_s / FINE_STEPS * 1e3:.1f} ms per step with the kernels, "
+        f"{plain_s / FINE_STEPS * 1e3:.1f} with the plain versions; mean uncertainty "
+        f"{np.array2string(unc, precision=3)}")
+    return {"batch": FINE_B, "steps": FINE_STEPS, "actions_identical": True,
+            "beliefs_bitwise_equal": True, "launches": launches,
+            "ms_per_step": kernel_s / FINE_STEPS * 1e3,
+            "plain_ms_per_step": plain_s / FINE_STEPS * 1e3, "mean_uncertainty": unc.tolist()}
+
+
+def quality_curve(out_dir: pathlib.Path) -> dict:
+    """(b) the quality tool's evaluation on the committed worlds at the
+    committed JAX reference's settings, each row held to the reference
+    mission by mission (|mean d| ≤ 3·sd(d)/√B for the final tr(P) and the
+    final RMSE) and the rows' order by final tr(P) where the reference
+    separates two rows by more than their bounds."""
+    ref = json.loads(QUALITY_REFERENCE.read_text())
+    check(ref["settings"] == qvr.REFERENCE_SETTINGS,
+          "the committed JAX reference was made with other settings than the tool's")
+    settings = qvr.Settings.from_reference(ref["settings"], root=str(ROOT))
+    world = IPPWorld(load_config(str(CONFIG_DIR / "example.yaml")), fast_sweeps=True)
+    init_state = qvr.load_worlds(str(QUALITY_WORLDS), world, settings.batch)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rows = qvr.evaluate(world, settings, init_state, log=lambda r: log("   ", r))
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    for name in ("spd_inverse", "spd_trace_product", "edge_factor_gain"):
+        check(launches[name] > 0, f"{name} was not launched on the quality curve")
+    qvr.write_curve(str(out_dir / "curve"), {"settings": ref["settings"]}, rows,
+                    torch.device("cuda"), str(QUALITY_WORLDS.relative_to(ROOT)))
+    refs = {r["planner"]: r for r in ref["rows"]}
+    table, failures = [], []
+    for r in rows:
+        jr = refs[r["planner"]]
+        entry = {"planner": r["planner"], "port": {k: r[k] for k in qvr.JAX_ROW_KEYS},
+                 "jax_final_uncertainty": jr["final_uncertainty"],
+                 "jax_final_rmse": jr["final_rmse"], "jax_mean_steps": jr["mean_steps"]}
+        for key in ("final_uncertainty", "final_rmse"):
+            entry[key] = _d_stats(r["per_mission"][key], jr["per_mission"][key])
+            if not entry[key]["ok"]:
+                failures.append(f"{r['planner']} {key}: mean d {entry[key]['mean_d']:.4g} "
+                                f"beyond 3 sd/sqrt(n) = {entry[key]['bound']:.4g}")
+        table.append(entry)
+        u, e = entry["final_uncertainty"], entry["final_rmse"]
+        log(f"  (b) {r['planner']}: final tr(P) port {np.mean(r['per_mission']['final_uncertainty']):.4f}"
+            f" jax {jr['final_uncertainty']:.4f} (mean d {u['mean_d']:+.4f}, bound {u['bound']:.4f}"
+            f"); RMSE port {np.mean(r['per_mission']['final_rmse']):.5f} jax "
+            f"{jr['final_rmse']:.5f} (mean d {e['mean_d']:+.5f}, bound {e['bound']:.5f}); steps "
+            f"{r['mean_steps']} / {jr['mean_steps']:.2f}; {r['ms_per_replan']:.3f} ms per replan, "
+            f"{r['wall_s']} s")
+    order = []
+    for i, a in enumerate(table):
+        for b in table[i + 1:]:
+            ja, jb = refs[a["planner"]]["final_uncertainty"], refs[b["planner"]]["final_uncertainty"]
+            if abs(ja - jb) <= a["final_uncertainty"]["bound"] + b["final_uncertainty"]["bound"]:
+                continue  # the reference does not separate these two
+            pa = np.mean(next(r for r in rows if r["planner"] == a["planner"])
+                         ["per_mission"]["final_uncertainty"])
+            pb = np.mean(next(r for r in rows if r["planner"] == b["planner"])
+                         ["per_mission"]["final_uncertainty"])
+            same = (pa < pb) == (ja < jb)
+            order.append({"pair": [a["planner"], b["planner"]], "same_order": bool(same)})
+            if not same:
+                failures.append(f"order of {a['planner']} and {b['planner']}: port "
+                                f"{pa:.4f} / {pb:.4f}, jax {ja:.4f} / {jb:.4f}")
+    result = {"settings": ref["settings"], "rows": table, "order": order,
+              "launches": launches, "wall_s": wall}
+    (out_dir / "comparison.json").write_text(json.dumps(result, indent=1))
+    log(f"  (b) {len(order)} separated pairs in the reference's order: "
+        f"{sum(o['same_order'] for o in order)}; launches {launches}; {wall:.1f} s")
+    check(not failures, "quality against the JAX reference: " + "; ".join(failures))
+    return result
+
+
+def snapshot_eval(out_dir: pathlib.Path) -> dict:
+    """(c) eval_snapshots on a copy of the committed run directory (the
+    deployed checkpoint, 16 simulations, 8 steps, B = 32, the committed
+    worlds): its deploy row equals the quality tool's zero_16sims row for the
+    same worlds, steps and seed, both under deterministic algorithms."""
+    run = out_dir / "run"
+    (run / "checkpoints").mkdir(parents=True, exist_ok=True)
+    shutil.copy(CHECKPOINT, run / "checkpoints" / CHECKPOINT.name)
+    hp = qvr.REFERENCE_SETTINGS
+    argv = ["--run", str(run), "--snapshots", "deploy", "--sims", str(SNAPSHOT_SIMS),
+            "--eval-steps", str(SNAPSHOT_STEPS), "--batch", str(hp["batch"]),
+            "--channels", str(hp["channels"]), "--blocks", str(hp["blocks"]),
+            "--unfloored-value-head", "--worlds", str(QUALITY_WORLDS), "--device", "cuda"]
+    settings = qvr.Settings(ckpt=str(CHECKPOINT), channels=hp["channels"], blocks=hp["blocks"],
+                            batch=hp["batch"], max_steps=SNAPSHOT_STEPS,
+                            zero_sims=str(SNAPSHOT_SIMS), unfloored_value_head=True,
+                            rows=[f"zero_{SNAPSHOT_SIMS}sims"])
+    world = IPPWorld(load_config(str(CONFIG_DIR / "example.yaml")), fast_sweeps=True)
+    torch.backends.cudnn.benchmark = False
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        check(eval_snapshots.main(argv) == 0, "eval_snapshots exited non-zero")
+        (row,) = qvr.evaluate(world, settings, qvr.load_worlds(str(QUALITY_WORLDS), world,
+                                                               hp["batch"]), log=None)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    written = json.loads((run / "snapshot_eval_reference.json").read_text())
+    check(list(written) == ["snapshot_deploy", "greedy", "random"],
+          f"eval_snapshots wrote rows {list(written)}")
+    deploy = written["snapshot_deploy"]
+    for key in ("final_uncertainty", "final_rmse"):
+        check(deploy[key] == row[key], f"eval_snapshots' deploy {key} {deploy[key]} differs "
+                                       f"from the quality tool's {row[key]}")
+    log(f"  (c) eval_snapshots deploy row {deploy} equals the quality tool's "
+        f"zero_{SNAPSHOT_SIMS}sims row; greedy {written['greedy']}, random {written['random']}")
+    return {"rows": written, "quality_tool_row": {k: row[k] for k in qvr.JAX_ROW_KEYS}}
+
+
+def quality_phase() -> dict:
+    log(f"== quality: the fine grid's greedy mission, the quality curve against the JAX "
+        f"reference, eval_snapshots (allowance {QUALITY_ALLOWANCE_S} s)")
+    out_dir = ROOT / "chiprun_out" / "quality"
+    if out_dir.exists():
+        shutil.rmtree(out_dir)
+    out_dir.mkdir(parents=True)
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    parts = {}
+    t = time.perf_counter()
+    parts["fine_grid"] = fine_grid_greedy(gen)
+    parts["fine_grid_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    parts["curve"] = quality_curve(out_dir)
+    parts["curve_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    parts["snapshots"] = snapshot_eval(out_dir)
+    parts["snapshots_s"] = time.perf_counter() - t
+    log(f"  quality parts: fine grid {parts['fine_grid_s']:.1f} s, curve {parts['curve_s']:.1f} s, "
+        f"eval_snapshots {parts['snapshots_s']:.1f} s")
+    return parts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs an NVIDIA card",
@@ -2538,6 +2918,7 @@ def main() -> int:
     entry_points = timed("entry_points", entry_points_phase)
     deploy = timed("deploy", deploy_phase, cfg)
     multidevice = timed("multidevice", multidevice_phase)
+    quality = timed("quality", quality_phase)
     pr6_s = phase_s["static"] + phase_s["cmaes"] + phase_s["cmaes_agreement"]
     pr7_s = phase_s["classic"] + phase_s["classic_agreement"] + phase_s["entry_points"]
     pr8_s = phase_s["deploy"] + phase_s["multidevice"]
@@ -2546,7 +2927,8 @@ def main() -> int:
         f"{training['loss_check_s']:.1f}, arena gate {training['arena_wall_s']:.1f}; "
         f"static + cmaes + cmaes_agreement {pr6_s:.1f} (allowance 60); "
         f"classic + classic_agreement + entry_points {pr7_s:.1f} (allowance 120); "
-        f"deploy + multidevice {pr8_s:.1f} (allowance {NEW_PHASES_ALLOWANCE_S})")
+        f"deploy + multidevice {pr8_s:.1f} (allowance {NEW_PHASES_ALLOWANCE_S}); "
+        f"quality {phase_s['quality']:.1f} (allowance {QUALITY_ALLOWANCE_S})")
     for r in rows:  # over the main paths, each counted from 0
         r["launches_by_path"] = {"greedy": greedy["launches"][r["name"]],
                                  "zero": zero["launches"][r["name"]],
@@ -2556,7 +2938,9 @@ def main() -> int:
                                  "classic": classic["launches"][r["name"]],
                                  "experiment": entry_points["launches"][r["name"]],
                                  "deploy": deploy["launches"][r["name"]],
-                                 "multidevice": multidevice["launches"][r["name"]]}
+                                 "multidevice": multidevice["launches"][r["name"]],
+                                 "fine_grid": quality["fine_grid"]["launches"][r["name"]],
+                                 "quality": quality["curve"]["launches"][r["name"]]}
         r["launches"] = sum(r["launches_by_path"].values())
 
     out_dir = ROOT / "chiprun_out"
@@ -2569,11 +2953,12 @@ def main() -> int:
         "training_agreement": training_agreement, "static": static, "cmaes": cmaes_run,
         "cmaes_agreement": cmaes_agreement, "classic": classic,
         "classic_agreement": classic_agreement, "entry_points": entry_points,
-        "deploy": deploy, "multidevice": multidevice,
+        "deploy": deploy, "multidevice": multidevice, "quality": quality,
     }, indent=1))
 
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "m_range",
+            "m25")
     log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -112,6 +112,30 @@
 //   (zero past N), then an xor-shuffle tree over 16, 8, 4, 2, 1; the plain
 //   version spells out the same order.  No atomics.
 //
+// The large-M route (13 <= M <= 32, the same four entry points): the
+// register-resident design above needs M(M+1)/2 values per thread for L
+// alone (325 at M = 25, past the 255 registers a thread may hold), and 20
+// more fully unrolled M values would multiply the build's time.  So M is a
+// runtime argument there, and each matrix (each packed block, each
+// mission) is one warp's, its workspace in shared memory (L and L^-1 at a
+// row stride of M | 1 elements, odd, so the lanes' rows fall in distinct
+// banks; 2 x 32 x 33 x 8 B = 16.5 KB per warp at M = 32 in float64), a CTA
+// of kLargeWarps = 4 warps:
+//   Cholesky, column by column (warp_cholesky_rt): lane i owns row i and
+//     forms s(i,j) - sum_k L[i][k] L[j][k] (k in order) with L[j][k] read
+//     from shared memory; lane j's sum gives the pivot by shuffle;
+//   forward substitution (warp_invert_lower): lane j runs down column j;
+//   the entries of S^-1 (each a sum over k in order) spread over the lanes.
+// Each sum keeps the order of the plain versions, so the route is bitwise
+// equal to them too; the one sum that the lanes cannot split without
+// changing its order, the trace product's M(M+1)/2 terms, lane 0 adds up
+// in order.  spd_inverse and spd_inverse_factor stage each matrix through
+// shared memory with coalesced copies; the trace product reads its block's
+// entries (`inner` apart) straight from global memory; edge_factor_gain
+// reads A straight from global memory, the lanes on consecutive columns.
+// A simple design, not a fast one: at M = 25 a warp does ~M^2 dependent
+// steps with most lanes idle.
+//
 // Numerics: the operations and their order are those of the plain PyTorch
 // versions (ops/smallchol.py), and the library is built with -fmad=false
 // (no multiply-add contraction) and IEEE division and square root, so on
@@ -120,8 +144,8 @@
 //
 // Interface: plain C, loaded with ctypes by ops/kernels.py; pointers and
 // the stream arrive as void*.  Each launcher returns 0, a cudaError_t from
-// cudaGetLastError() after the launch, or -1 for an unsupported M, dtype
-// or size (nothing launched).
+// cudaGetLastError() after the launch, or -1 for an unsupported M (outside
+// 1..32), dtype or size (nothing launched).
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -129,7 +153,9 @@
 
 namespace {
 
-constexpr int kMaxM = 12;
+constexpr int kMaxUnrolledM = 12;  // the register-resident route: M = 1..12
+constexpr int kMaxM = 32;          // the large-M route: M = 13..32
+constexpr int kLargeWarps = 4;     // matrices, and warps, per CTA of the large-M route
 constexpr int kInverseTile = 32;  // matrices, and threads, per CTA of spd_inverse
 constexpr int kTraceThreads = 128;
 constexpr int kEdgeWarps = 4;  // missions, and warps, per CTA of edge_factor_gain
@@ -515,6 +541,301 @@ edge_factor_gain_kernel(const T* __restrict__ s_raw, const T* __restrict__ a_blk
   if (lane == 0) gain[b] = g;
 }
 
+// ---------------------------------------------------------------- large-M route
+
+// row stride of the large route's L and L^-1 in shared memory: odd, so the
+// lanes' rows start in distinct banks
+__host__ __device__ constexpr int large_ld(int m) { return m | 1; }
+
+// position of the packed entry e in the lower triangle: (i, j), i >= j
+__device__ __forceinline__ void packed_pair(int e, int& i, int& j) {
+  i = 0;
+  while ((i + 1) * (i + 2) / 2 <= e) ++i;
+  j = e - i * (i + 1) / 2;
+}
+
+// L (rows of `ld` elements in shared memory, zeros above the diagonal) with
+// L L^T = the SPD matrix whose entry (i, j), i >= j, is s(i, j), across the
+// warp: lane i owns row i, each entry's sum over k in the order of
+// `cholesky`, the pivot from lane j's sum.  s is called only for i >= j.
+template <typename T, typename Entry>
+__device__ __forceinline__ void warp_cholesky_rt(const Entry& s, int m, T* L, int ld, int lane) {
+  for (int j = 0; j < m; ++j) {
+    T acc = T(0);
+    if (lane >= j && lane < m) {
+      acc = s(lane, j);
+      for (int k = 0; k < j; ++k) acc = acc - L[lane * ld + k] * L[j * ld + k];
+    }
+    const T d = sqrt(clamp_pivot(__shfl_sync(kFullMask, acc, j)));
+    if (lane < m) L[lane * ld + j] = lane == j ? d : (lane > j ? acc * (T(1) / d) : T(0));
+    __syncwarp();
+  }
+}
+
+// Li = L^-1 (lower triangle) by forward substitution, lane j running down
+// column j in the order of `inverse_factor`
+template <typename T>
+__device__ __forceinline__ void warp_invert_lower(const T* L, int m, T* Li, int ld, int lane) {
+  if (lane < m) {
+    const int c = lane;
+    const T diag = T(1) / L[c * ld + c];
+    Li[c * ld + c] = diag;
+    for (int i = c + 1; i < m; ++i) {
+      T acc = L[i * ld + c] * diag;
+      for (int k = c + 1; k < i; ++k) acc = acc + L[i * ld + k] * Li[k * ld + c];
+      Li[i * ld + c] = -acc / L[i * ld + i];
+    }
+  }
+  __syncwarp();
+}
+
+// S^-1[i][j], i >= j, from Li in shared memory, in the order of `inverse_entry`
+template <typename T>
+__device__ __forceinline__ T inverse_entry_rt(const T* Li, int m, int ld, int i, int j) {
+  T acc = Li[i * ld + i] * Li[i * ld + j];
+  for (int k = i + 1; k < m; ++k) acc = acc + Li[k * ld + i] * Li[k * ld + j];
+  return acc;
+}
+
+// elements of one warp's shared workspace: the staged matrix (m * m) and
+// two matrices of row stride large_ld(m)
+__host__ __device__ constexpr int large_warp_elems(int m) {
+  return m * m + 2 * m * large_ld(m);
+}
+
+// overwrite the row-major SPD matrix buf (m x m, shared memory) with its
+// inverse, using L and Li (shared memory) as scratch
+template <typename T>
+__device__ __forceinline__ void warp_invert_in_place(T* buf, int m, T* L, T* Li, int lane) {
+  const int ld = large_ld(m);
+  warp_cholesky_rt([&](int i, int j) { return buf[i * m + j]; }, m, L, ld, lane);
+  warp_invert_lower(L, m, Li, ld, lane);
+  for (int e = lane; e < m * (m + 1) / 2; e += 32) {
+    int i, j;
+    packed_pair(e, i, j);
+    const T v = inverse_entry_rt(Li, m, ld, i, j);
+    buf[i * m + j] = v;
+    buf[j * m + i] = v;
+  }
+  __syncwarp();
+}
+
+template <typename T>
+__device__ __forceinline__ void warp_copy(T* __restrict__ dst, const T* __restrict__ src,
+                                          int count, int lane) {
+  for (int k = lane; k < count; k += 32) dst[k] = src[k];
+  __syncwarp();
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kLargeWarps * 32)
+spd_inverse_large_kernel(const T* __restrict__ s, T* __restrict__ out, int64_t n, int m) {
+  extern __shared__ __align__(16) unsigned char large_smem[];
+  const int warp = static_cast<int>(threadIdx.x) >> 5;
+  const int lane = static_cast<int>(threadIdx.x) & 31;
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * kLargeWarps + warp;
+  if (b >= n) return;  // whole warps only: nothing below syncs the CTA
+  T* buf = reinterpret_cast<T*>(large_smem) + warp * large_warp_elems(m);
+  T* L = buf + m * m;
+  T* Li = L + m * large_ld(m);
+  const int64_t mm = static_cast<int64_t>(m) * m;
+  warp_copy(buf, s + b * mm, m * m, lane);
+  warp_invert_in_place(buf, m, L, Li, lane);
+  warp_copy(out + b * mm, buf, m * m, lane);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kLargeWarps * 32)
+spd_inverse_factor_large_kernel(const T* __restrict__ s, T* __restrict__ inv,
+                                T* __restrict__ chol, int64_t n, int m) {
+  extern __shared__ __align__(16) unsigned char large_smem[];
+  const int warp = static_cast<int>(threadIdx.x) >> 5;
+  const int lane = static_cast<int>(threadIdx.x) & 31;
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * kLargeWarps + warp;
+  if (b >= n) return;
+  const int ld = large_ld(m);
+  T* buf = reinterpret_cast<T*>(large_smem) + warp * large_warp_elems(m);
+  T* L = buf + m * m;
+  T* Li = L + m * ld;
+  const int64_t mm = static_cast<int64_t>(m) * m;
+  warp_copy(buf, s + b * mm, m * m, lane);
+  warp_invert_in_place(buf, m, L, Li, lane);
+  warp_copy(inv + b * mm, buf, m * m, lane);
+  // U = chol(S^-1), zeros above the diagonal, written over buf
+  warp_cholesky_rt([&](int i, int j) { return buf[i * m + j]; }, m, L, ld, lane);
+  for (int k = lane; k < m * m; k += 32) buf[k] = L[(k / m) * ld + k % m];
+  __syncwarp();
+  warp_copy(chol + b * mm, buf, m * m, lane);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kLargeWarps * 32)
+spd_trace_product_large_kernel(const T* __restrict__ s, const T* __restrict__ g,
+                               T* __restrict__ out, int64_t outer, int64_t inner, int m) {
+  extern __shared__ __align__(16) unsigned char large_smem[];
+  const int warp = static_cast<int>(threadIdx.x) >> 5;
+  const int lane = static_cast<int>(threadIdx.x) & 31;
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * kLargeWarps + warp;
+  if (t >= outer * inner) return;
+  const int ld = large_ld(m);
+  const int kT = m * (m + 1) / 2;
+  T* L = reinterpret_cast<T*>(large_smem) + warp * (2 * m * ld);
+  T* Li = L + m * ld;
+  const int64_t o = t / inner;
+  const int64_t base = o * (kT - 1) * inner + t;  // (o*T)*inner + (t - o*inner)
+  const Packed<T> sb{s + base, inner};
+  const Packed<T> gb{g + base, inner};
+  warp_cholesky_rt(sb, m, L, ld, lane);
+  warp_invert_lower(L, m, Li, ld, lane);
+  T* terms = L;  // L is spent: the terms, in packed order
+  for (int e = lane; e < kT; e += 32) {
+    int i, j;
+    packed_pair(e, i, j);
+    T term = inverse_entry_rt(Li, m, ld, i, j) * gb(i, j);
+    if (i != j) term = term + term;
+    terms[e] = term;
+  }
+  __syncwarp();
+  if (lane == 0) {
+    T total = terms[0];
+    for (int e = 1; e < kT; ++e) total = total + terms[e];
+    out[t] = total;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kLargeWarps * 32)
+edge_factor_gain_large_kernel(const T* __restrict__ s_raw, const T* __restrict__ a_blk,
+                              const T* __restrict__ r_table, const int64_t* __restrict__ action,
+                              const T* __restrict__ mask, int64_t mask_stride,
+                              T* __restrict__ wct, T* __restrict__ gain, int64_t n_missions,
+                              int n, int m, int round_bf16) {
+  extern __shared__ __align__(16) unsigned char large_smem[];
+  const int warp = static_cast<int>(threadIdx.x) >> 5;
+  const int lane = static_cast<int>(threadIdx.x) & 31;
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * kLargeWarps + warp;
+  if (b >= n_missions) return;
+  const int ld = large_ld(m);
+  T* S = reinterpret_cast<T*>(large_smem) + warp * large_warp_elems(m);  // S_raw, row-major
+  T* X = S + m * m;   // L, then S^-1 (lower triangle)
+  T* Y = X + m * ld;  // L^-1 (lower triangle), then U
+  const int64_t mm = static_cast<int64_t>(m) * m;
+  warp_copy(S, s_raw + b * mm, m * m, lane);
+  const int64_t act = __ldg(reinterpret_cast<const long long*>(action) + b);
+  const T r_row = lane < m ? __ldg(r_table + act * m + lane) : T(0);
+
+  // L of S = 0.5 (S_raw + S_raw^T) + diag(R); s(i, j) is asked of lane i
+  warp_cholesky_rt(
+      [&](int i, int j) {
+        return T(0.5) * (S[i * m + j] + S[j * m + i]) + (i == j ? r_row : T(0));
+      },
+      m, X, ld, lane);
+  warp_invert_lower(X, m, Y, ld, lane);
+  for (int e = lane; e < m * (m + 1) / 2; e += 32) {
+    int i, j;
+    packed_pair(e, i, j);
+    X[i * ld + j] = inverse_entry_rt(Y, m, ld, i, j);
+  }
+  __syncwarp();
+  // U = chol(S^-1) into Y, zeros above the diagonal
+  warp_cholesky_rt([&](int i, int j) { return X[i * ld + j]; }, m, Y, ld, lane);
+
+  // WcT = U^T A, the squares and this lane's share of the gain; A is read
+  // from global memory, the lanes on consecutive columns
+  const T* A = a_blk + b * m * static_cast<int64_t>(n);
+  T* out = wct + b * m * static_cast<int64_t>(n);
+  const T* mrow = mask == nullptr ? nullptr : mask + b * mask_stride;
+  T g = T(0);
+  for (int c = 0, col = lane; col - lane < n; ++c, col += 32) {
+    T sq = T(0);
+    if (col < n) {
+      T a[kMaxM];
+#pragma unroll
+      for (int k = 0; k < kMaxM; ++k) a[k] = k < m ? __ldg(A + k * n + col) : T(0);
+      for (int r = 0; r < m; ++r) {
+        T acc = Y[r] * a[0];  // U[0][r] A[0][col]
+#pragma unroll
+        for (int k = 1; k < kMaxM; ++k) {
+          if (k < m) acc = acc + Y[k * ld + r] * a[k];
+        }
+        if (round_bf16) acc = round_to_bf16(acc);
+        out[r * n + col] = acc;
+        sq = r == 0 ? acc * acc : sq + acc * acc;
+      }
+      if (mrow != nullptr) sq = sq * __ldg(mrow + col);
+    }
+    g = c == 0 ? sq : g + sq;
+  }
+#pragma unroll
+  for (int w = 16; w >= 1; w >>= 1) g = g + __shfl_xor_sync(kFullMask, g, w);
+  if (lane == 0) gain[b] = g;
+}
+
+// bytes of dynamic shared memory for kLargeWarps warps of `elems` each; a
+// kernel that needs more than 48 KB is allowed it first.  cudaSuccess, or
+// the error that refused the size (nothing launched)
+template <typename K>
+int large_smem_bytes(K kernel, int elems, int elem_size, size_t* bytes) {
+  *bytes = static_cast<size_t>(kLargeWarps) * elems * elem_size;
+  if (*bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(*bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
+inline unsigned large_blocks(int64_t n) {
+  return static_cast<unsigned>((n + kLargeWarps - 1) / kLargeWarps);
+}
+
+template <typename T>
+int launch_inverse_large(const void* s, void* out, int64_t n, int m, cudaStream_t stream) {
+  size_t bytes;
+  auto kernel = spd_inverse_large_kernel<T>;
+  if (int err = large_smem_bytes(kernel, large_warp_elems(m), sizeof(T), &bytes)) return err;
+  kernel<<<large_blocks(n), kLargeWarps * 32, bytes, stream>>>(
+      static_cast<const T*>(s), static_cast<T*>(out), n, m);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_inverse_factor_large(const void* s, void* inv, void* chol, int64_t n, int m,
+                                cudaStream_t stream) {
+  size_t bytes;
+  auto kernel = spd_inverse_factor_large_kernel<T>;
+  if (int err = large_smem_bytes(kernel, large_warp_elems(m), sizeof(T), &bytes)) return err;
+  kernel<<<large_blocks(n), kLargeWarps * 32, bytes, stream>>>(
+      static_cast<const T*>(s), static_cast<T*>(inv), static_cast<T*>(chol), n, m);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_trace_large(const void* s, const void* g, void* out, int64_t outer, int64_t inner,
+                       int m, cudaStream_t stream) {
+  size_t bytes;
+  auto kernel = spd_trace_product_large_kernel<T>;
+  if (int err = large_smem_bytes(kernel, 2 * m * large_ld(m), sizeof(T), &bytes)) return err;
+  kernel<<<large_blocks(outer * inner), kLargeWarps * 32, bytes, stream>>>(
+      static_cast<const T*>(s), static_cast<const T*>(g), static_cast<T*>(out), outer, inner,
+      m);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_edge_large(const void* s, const void* a_blk, const void* r, const void* action,
+                      const void* mask, int64_t mask_stride, void* wct, void* gain,
+                      int64_t n_missions, int n, int m, int round_bf16, cudaStream_t stream) {
+  size_t bytes;
+  auto kernel = edge_factor_gain_large_kernel<T>;
+  if (int err = large_smem_bytes(kernel, large_warp_elems(m), sizeof(T), &bytes)) return err;
+  kernel<<<large_blocks(n_missions), kLargeWarps * 32, bytes, stream>>>(
+      static_cast<const T*>(s), static_cast<const T*>(a_blk), static_cast<const T*>(r),
+      static_cast<const int64_t*>(action), static_cast<const T*>(mask), mask_stride,
+      static_cast<T*>(wct), static_cast<T*>(gain), n_missions, n, m, round_bf16);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int M, typename T>
 void launch_inverse(const void* s, void* out, int64_t n, cudaStream_t stream) {
   const unsigned blocks = static_cast<unsigned>((n + kInverseTile - 1) / kInverseTile);
@@ -562,64 +883,83 @@ int launch_edge(const void* s, const void* a_blk, const void* r, const void* act
   return static_cast<int>(cudaGetLastError());
 }
 
-// calls F::template run<M, T>() for the runtime M; false if M is unsupported
+// calls F::run<M, T>() for M = 1..kMaxUnrolledM and F::run_large<T>(m) for
+// the large-M route; -1 for an unsupported M (nothing launched), else what
+// the launcher returns (0 or a cudaError_t)
 template <typename T, typename F>
-bool dispatch_m(int m, F f) {
+int dispatch_m(int m, F f) {
   switch (m) {
-    case 1: f.template run<1, T>(); return true;
-    case 2: f.template run<2, T>(); return true;
-    case 3: f.template run<3, T>(); return true;
-    case 4: f.template run<4, T>(); return true;
-    case 5: f.template run<5, T>(); return true;
-    case 6: f.template run<6, T>(); return true;
-    case 7: f.template run<7, T>(); return true;
-    case 8: f.template run<8, T>(); return true;
-    case 9: f.template run<9, T>(); return true;
-    case 10: f.template run<10, T>(); return true;
-    case 11: f.template run<11, T>(); return true;
-    case 12: f.template run<12, T>(); return true;
-    default: return false;
+    case 1: return f.template run<1, T>();
+    case 2: return f.template run<2, T>();
+    case 3: return f.template run<3, T>();
+    case 4: return f.template run<4, T>();
+    case 5: return f.template run<5, T>();
+    case 6: return f.template run<6, T>();
+    case 7: return f.template run<7, T>();
+    case 8: return f.template run<8, T>();
+    case 9: return f.template run<9, T>();
+    case 10: return f.template run<10, T>();
+    case 11: return f.template run<11, T>();
+    case 12: return f.template run<12, T>();
+    default:
+      if (m > kMaxUnrolledM && m <= kMaxM) return f.template run_large<T>(m);
+      return -1;
   }
 }
 
 struct InverseLaunch {
   const void* s; void* out; int64_t n; cudaStream_t stream;
-  template <int M, typename T> void run() const { launch_inverse<M, T>(s, out, n, stream); }
+  template <int M, typename T> int run() const {
+    launch_inverse<M, T>(s, out, n, stream);
+    return static_cast<int>(cudaGetLastError());
+  }
+  template <typename T> int run_large(int m) const {
+    return launch_inverse_large<T>(s, out, n, m, stream);
+  }
 };
 
 struct InverseFactorLaunch {
   const void* s; void* inv; void* chol; int64_t n; cudaStream_t stream;
-  template <int M, typename T> void run() const {
+  template <int M, typename T> int run() const {
     launch_inverse_factor<M, T>(s, inv, chol, n, stream);
+    return static_cast<int>(cudaGetLastError());
+  }
+  template <typename T> int run_large(int m) const {
+    return launch_inverse_factor_large<T>(s, inv, chol, n, m, stream);
   }
 };
 
 struct TraceLaunch {
   const void* s; const void* g; void* out; int64_t outer; int64_t inner; cudaStream_t stream;
-  template <int M, typename T> void run() const {
+  template <int M, typename T> int run() const {
     launch_trace<M, T>(s, g, out, outer, inner, stream);
+    return static_cast<int>(cudaGetLastError());
+  }
+  template <typename T> int run_large(int m) const {
+    return launch_trace_large<T>(s, g, out, outer, inner, m, stream);
   }
 };
 
 struct EdgeLaunch {
   const void* s; const void* a_blk; const void* r; const void* action; const void* mask;
   int64_t mask_stride; void* wct; void* gain; int64_t n_missions; int n; int round_bf16;
-  cudaStream_t stream; int* result;
-  template <int M, typename T> void run() const {
-    *result = launch_edge<M, T>(s, a_blk, r, action, mask, mask_stride, wct, gain, n_missions, n,
-                                round_bf16, stream);
+  cudaStream_t stream;
+  template <int M, typename T> int run() const {
+    return launch_edge<M, T>(s, a_blk, r, action, mask, mask_stride, wct, gain, n_missions, n,
+                             round_bf16, stream);
+  }
+  template <typename T> int run_large(int m) const {
+    return launch_edge_large<T>(s, a_blk, r, action, mask, mask_stride, wct, gain, n_missions,
+                                n, m, round_bf16, stream);
   }
 };
 
 // dtype codes: 0 = float32, 1 = float64
 template <typename F>
 int launch(int m, int dtype, F f) {
-  bool ok;
-  if (dtype == 0) ok = dispatch_m<float>(m, f);
-  else if (dtype == 1) ok = dispatch_m<double>(m, f);
-  else ok = false;
-  if (!ok) return -1;
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 0) return dispatch_m<float>(m, f);
+  if (dtype == 1) return dispatch_m<double>(m, f);
+  return -1;
 }
 
 }  // namespace
@@ -657,14 +997,9 @@ int smallchol_edge_factor_gain(const void* s, const void* a_blk, const void* r,
                                int round_bf16, int dtype, void* stream) {
   if (n <= 0) return 0;
   if (n_cells <= 0) return -1;
-  int result = -1;
-  const EdgeLaunch f{s, a_blk, r, action, mask, mask_stride, wct, gain, n, n_cells, round_bf16,
-                     static_cast<cudaStream_t>(stream), &result};
-  bool ok;
-  if (dtype == 0) ok = dispatch_m<float>(m, f);
-  else if (dtype == 1) ok = dispatch_m<double>(m, f);
-  else ok = false;
-  return ok ? result : -1;
+  return launch(m, dtype,
+                EdgeLaunch{s, a_blk, r, action, mask, mask_stride, wct, gain, n, n_cells,
+                           round_bf16, static_cast<cudaStream_t>(stream)});
 }
 
 const char* smallchol_error_string(int err) {

@@ -9,7 +9,10 @@ inverse and its Cholesky factor; where a clamped pivot makes the factor
 overflow, its inf and NaN entries must sit where the plain version's do.
 ``edge_factor_gain`` (the search's whole edge update after its two GEMMs)
 is held to the same on clamped pivots, in both dtypes, with the bf16
-round trip, for every column chunk and every mission of a batch.
+round trip, for every column chunk and every mission of a batch.  Each
+kernel is held at every M of its register-resident route (1..12) and at
+M = 13, 16, 25 and 32 of its large-M route (one warp per matrix); M = 33
+raises.
 
 These tests need an NVIDIA Hopper card and the CUDA toolkit; elsewhere
 they skip.  They import no JAX, so they run where JAX is not installed:
@@ -43,6 +46,11 @@ def cuda():
     return torch.device("cuda")
 
 
+#: the register-resident route's M, and the large-M route's tested M
+SMALL_M = list(range(1, 13))
+LARGE_M = [13, 16, 25, 32]
+
+
 def random_spd(n, M, dtype, seed):
     gen = torch.Generator().manual_seed(seed)
     A = torch.randn((n, M, M), generator=gen, dtype=torch.float64)
@@ -50,7 +58,7 @@ def random_spd(n, M, dtype, seed):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("M", list(range(1, 13)))
+@pytest.mark.parametrize("M", SMALL_M + LARGE_M)
 def test_spd_inverse_kernel_is_bitwise_plain(cuda, M, dtype):
     S = random_spd(257, M, dtype, seed=M).to(cuda)
     got = kernels.spd_inverse(S)
@@ -65,7 +73,7 @@ def packed(X, outer, inner):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("M", [1, 2, 4, 9, 12])
+@pytest.mark.parametrize("M", [1, 2, 4, 9, 12] + LARGE_M)
 def test_spd_trace_product_kernel_is_bitwise_plain(cuda, M, dtype):
     """The kernel on packed blocks against the full-block plain version."""
     S = random_spd(1000, M, dtype, seed=M).to(cuda)
@@ -79,7 +87,7 @@ def test_spd_trace_product_kernel_is_bitwise_plain(cuda, M, dtype):
 @pytest.mark.parametrize("outer,inner", [(100, 64), (64, 100), (3, 1001)],
                          ids=["dense", "gather", "ragged"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("M", list(range(1, 13)))
+@pytest.mark.parametrize("M", SMALL_M + LARGE_M)
 def test_packed_trace_product_kernel_is_bitwise_plain(cuda, M, dtype, outer, inner):
     """Both sweep layouts, (Ag, T, B) and (B, T, Ag), and an inner length
     that is no multiple of the warp, with one clamped pivot."""
@@ -122,7 +130,7 @@ def same(got, want):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("M", list(range(1, 13)))
+@pytest.mark.parametrize("M", SMALL_M + LARGE_M)
 def test_spd_inverse_factor_kernel_is_bitwise_plain(cuda, M, dtype):
     S = random_spd(257, M, dtype, seed=300 + M)
     S[5, -1, -1] -= 2.0 * S[5].diagonal().sum()  # indefinite: the last pivot is clamped
@@ -182,7 +190,7 @@ EDGE_IDS = ["float32", "float32-bf16", "float64"]
 
 @pytest.mark.parametrize("use_mask", [False, True], ids=["nomask", "mask"])
 @pytest.mark.parametrize("dtype,round_bf16", EDGE_DTYPES, ids=EDGE_IDS)
-@pytest.mark.parametrize("M", list(range(1, 13)))
+@pytest.mark.parametrize("M", SMALL_M + LARGE_M)
 def test_edge_factor_gain_kernel_is_bitwise_plain(cuda, M, dtype, round_bf16, use_mask):
     """N = 100 (four column chunks, the last ragged), one clamped pivot:
     its overflowing factor must put inf and NaN where the plain version
@@ -229,6 +237,33 @@ def test_edge_factor_gain_covers_every_mission(cuda, B, dtype):
     assert bool(torch.isfinite(WcT).all()) and bool(torch.isfinite(gain).all())
     assert torch.equal(WcT, want[0]) and torch.equal(gain, want[1])
     got = kernels.edge_factor_gain(S_raw, A, R, a, mask)  # and through the wrapper
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B", [1, 3, 4, 5, 1025])
+def test_large_m_route_covers_every_matrix(cuda, B, dtype):
+    """The large-M route (M = 25, four warps per CTA) writes every matrix,
+    block and mission of a ragged batch: the outputs' memory is first
+    filled with NaN (freed at once, so the outputs reuse it)."""
+    M = 25
+    S = random_spd(B, M, dtype, seed=B).to(cuda)
+    torch.full((4 * B * M * 400,), float("nan"), dtype=dtype, device=cuda)
+    assert torch.equal(kernels.spd_inverse(S), smallchol.spd_inverse(S))
+    torch.full((4 * B * M * 400,), float("nan"), dtype=dtype, device=cuda)
+    for got, want in zip(kernels.spd_inverse_factor(S), smallchol.spd_inverse_factor(S)):
+        assert torch.equal(got, want)
+    Sp, Gp = packed(S, 1, B), packed(random_spd(B, M, dtype, seed=B + 1).to(cuda), 1, B)
+    torch.full((4 * B * M * 400,), float("nan"), dtype=dtype, device=cuda)
+    got = kernels.spd_trace_product_packed(Sp, Gp)
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, smallchol.spd_trace_product_packed(Sp, Gp))
+    S_raw, A, R, a, mask = (t.to(cuda) for t in edge_inputs(B, M, 400, dtype, seed=B))
+    torch.full((4 * B * M * 400,), float("nan"), dtype=dtype, device=cuda)
+    got = kernels.edge_factor_gain(S_raw, A, R, a, mask)
+    torch.cuda.synchronize()
+    want = smallchol.edge_factor_gain(S_raw, A, R, a, mask)
+    assert bool(torch.isfinite(got[0]).all()) and bool(torch.isfinite(got[1]).all())
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
@@ -279,13 +314,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         kernels.spd_inverse(S.mT)  # not contiguous
     with pytest.raises(ValueError):
-        kernels.spd_inverse(random_spd(2, 13, torch.float32, seed=4).to(cuda))
+        kernels.spd_inverse(random_spd(2, 33, torch.float32, seed=4).to(cuda))
     with pytest.raises(TypeError):
         kernels.spd_inverse(S.half())
     with pytest.raises(ValueError):
         kernels.spd_inverse_factor(S.mT)  # not contiguous
     with pytest.raises(ValueError):
-        kernels.spd_inverse_factor(random_spd(2, 13, torch.float32, seed=4).to(cuda))
+        kernels.spd_inverse_factor(random_spd(2, 33, torch.float32, seed=4).to(cuda))
     with pytest.raises(TypeError):
         kernels.spd_inverse_factor(S.half())
     Sp = packed(S, 1, 4)
@@ -308,9 +343,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         kernels.edge_factor_gain(S_raw, A, R, a.int(), mask)
     with pytest.raises(ValueError):
         kernels.edge_factor_gain(S_raw, A, R, a.cpu(), mask)
-    S13, A13, R13, a13, _ = (t.to(cuda) for t in edge_inputs(2, 13, 20, torch.float32, seed=4))
+    S33, A33, R33, a33, _ = (t.to(cuda) for t in edge_inputs(2, 33, 20, torch.float32, seed=4))
     with pytest.raises(ValueError):
-        kernels.edge_factor_gain(S13, A13, R13, a13)  # M = 13
+        kernels.edge_factor_gain(S33, A33, R33, a33)  # M = 33
+    S33p = packed(random_spd(2, 33, torch.float32, seed=4).to(cuda), 1, 2)
+    with pytest.raises(ValueError):
+        kernels.spd_trace_product_packed(S33p, S33p)  # M = 33
     cfg = load_config(str(CONFIG_DIR / "example.yaml"))
     from ipp_rl_tpu_torch.planners.zero.mcts import ZeroMCTS
 

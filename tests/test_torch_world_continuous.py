@@ -59,7 +59,7 @@ def test_m_max_cont_matches_jax(name, small_cfg):
     jworld, world = worlds(name, small_cfg, torch.float64)
     assert world.m_max_cont == jworld.m_max_cont
     if name != "small":
-        assert world.m_max_cont == 9  # inside the kernels' M = 1..12
+        assert world.m_max_cont == 9  # inside the kernels' M = 1..32
 
 
 CASES = [(n, d) for n in ("small", "example.yaml") for d in (torch.float64, torch.float32)]
