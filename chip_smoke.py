@@ -211,6 +211,27 @@ Phases, each of which fails the run on a failed check (none is caught):
    M = 13 and 32; ``spd_inverse_factor`` at (1024, M, M);
    ``edge_factor_gain`` at (1024, M, 400) with a per-mission mask (M = 25: a
    fine-grid descent step's inputs); and times each at M = 25 as at M = 9.
+16. the 1 m grid (allowance ``FINE_1M_ALLOWANCE_S``): example.yaml's field
+   on ``FINE_1M_GRID`` (40 x 40 cells of 1 m: lattice M = 81, continuous
+   M = 121, A = 3200, N = 1600; the kernels' CTA route): (a) greedy with
+   fast sweeps at B = ``FINE_1M_B`` for ``FINE_1M_STEPS`` steps (a mission
+   cut for time), counted from 0: ``spd_trace_product`` launched twice per
+   step and ``spd_inverse`` once, uncertainty falls, budgets stay
+   non-negative; ms per step, the sweep and the commit by CUDA events, the
+   peak; (b) one step at B = ``FINE_1M_AGREE_B`` with the kernels and with
+   their plain versions from one state and noise: actions identical,
+   beliefs bitwise equal; (c) CMA-ES on temperature_cmaes.yaml on the same
+   grid at B = ``FINE_1M_CMAES_B``, one replan, counted from 0 (the
+   launches the path implies: ``edge_factor_gain`` 105), its ms, the
+   fitness's share and the peak, then ``edge_factor_gain`` bitwise against
+   its plain version on the replan's own first fitness inputs (192, 121,
+   1600) (a whole plain replan at M = 121 takes too long).  Phase 2 also
+   holds the CTA route (M >= 33, one CTA per matrix): timed and bitwise at
+   the 1 m grid's shapes, ``spd_inverse`` (4096, 81, 81) and (4096, 121,
+   121), ``spd_trace_product`` on the 1 m sweep's two launches at B = 16,
+   ``spd_inverse_factor`` (1024, 81, 81), ``edge_factor_gain`` (192, 121,
+   1600) with a per-member mask; and at M = ``CTA_M_CHECKED`` clamped
+   pivots and float64 with the workspace in global memory.
 
 Float32 products run in full float32: TF32 is switched off for matmuls
 and cuDNN.  The last stdout line is ``{"ok": true, "device": {...}}``;
@@ -355,6 +376,18 @@ QUALITY_WORLDS = ROOT / "runs" / "quality_torch" / "worlds_s12345_b32.npz"
 QUALITY_REFERENCE = ROOT / "runs" / "quality_torch" / "jax_reference.json"
 SNAPSHOT_SIMS, SNAPSHOT_STEPS = 16, 8
 QUALITY_ALLOWANCE_S = 150
+# phase 2's CTA-route rows and phase 16: example.yaml's field (and
+# temperature_cmaes.yaml's) on 40 x 40 cells of 1 m: lattice M = 81 (A =
+# 3200, N = 1600), continuous M = 121; greedy B x steps (a mission cut for
+# time), its agreement batch, CMA-ES B x one replan
+FINE_1M_GRID = {"x_dim": 40, "y_dim": 40, "resolution": 1}
+FINE_1M_B, FINE_1M_STEPS, FINE_1M_AGREE_B = 16, 4, 2
+FINE_1M_CMAES_B = 16
+FINE_1M_ALLOWANCE_S = 150
+# the CTA route's clamped-pivot and float64 (global workspace) checks in
+# phase 2: every M >= 33 runs the same code, and a plain version's time
+# grows as M^3 (~20 s a call at M = 121 on the card)
+CTA_M_CHECKED = 48
 # the kernels repeat their plain versions' operations in the same order,
 # one rounding each: they are held to bitwise equality; the metric curves
 # of the agreement phase to this relative tolerance
@@ -620,11 +653,15 @@ def kernel_phase(gen: torch.Generator) -> list:
     classic = classic_shape_checks(gen)
     deploy = deploy_shape_checks(gen)
     large = large_m_rows(gen)
+    cta = cta_m_rows(gen)
     for r in rows:
-        r["m_range"] = large[r["name"]]["m_range"]
+        r["m_range"] = "any M >= 1"
         r["m25"] = large[r["name"]]["m25"]
         r["large_m_checks"] = large[r["name"]]["checks"]
-        r["max_abs_err"] = max(r["max_abs_err"], large[r["name"]]["max_abs_err"])
+        r["m81_m121"] = cta[r["name"]]["rows"]
+        r["cta_m_checks"] = cta[r["name"]]["checks"]
+        r["max_abs_err"] = max(r["max_abs_err"], large[r["name"]]["max_abs_err"],
+                               cta[r["name"]]["max_abs_err"])
         if r["name"] in continuous:
             r["continuous_checks"] = continuous[r["name"]]
         if r["name"] in classic:
@@ -807,6 +844,14 @@ def record_trace_products(fn, *args) -> list:
     return recorded
 
 
+def random_waypoints(world, n: int, gen: torch.Generator) -> torch.Tensor:
+    """n waypoints uniform over the field's box and altitude band."""
+    env, con = world.cfg.environment, world.cfg.constraints
+    lo = torch.tensor([0.0, 0.0, con.min_altitude], device="cuda")
+    hi = torch.tensor([env.extent_x, env.extent_y, con.max_altitude], device="cuda")
+    return lo + torch.rand((n, 3), generator=gen, device="cuda") * (hi - lo)
+
+
 def continuous_shape_checks(gen: torch.Generator) -> dict:
     """The kernels at the static baselines' and CMA-ES's shapes, bitwise
     against their plain versions: ``spd_inverse`` on a ``step_position``
@@ -819,15 +864,8 @@ def continuous_shape_checks(gen: torch.Generator) -> dict:
     out = {}
     cfg = load_config(str(CONFIG_DIR / "example.yaml"))
     world = IPPWorld(cfg)
-
-    def waypoints(w, n):
-        env, con = w.cfg.environment, w.cfg.constraints
-        lo = torch.tensor([0.0, 0.0, con.min_altitude], device="cuda")
-        hi = torch.tensor([env.extent_x, env.extent_y, con.max_altitude], device="cuda")
-        return lo + torch.rand((n, 3), generator=gen, device="cuda") * (hi - lo)
-
     state = world.init_state(STATIC_B, gen)
-    wp = waypoints(world, STATIC_B)
+    wp = random_waypoints(world, STATIC_B, gen)
     H, R, _, valid = world.measurement_model_at(wp)
     check(bool((~valid).any()) and bool((wp[:, 2] > 10).any()) and bool((wp[:, 2] <= 10).any()),
           "the commit's check lacks padded rows or one of the resolution factors")
@@ -848,7 +886,7 @@ def continuous_shape_checks(gen: torch.Generator) -> dict:
     for n in (CMAES_B * lam, CMAES_B * lam + 1):
         P = tstate.cov.repeat_interleave(lam, dim=0)[:n]
         m = mask.repeat_interleave(lam, dim=0)[:n]
-        Hn, Rn, _, _ = tworld.measurement_model_at(waypoints(tworld, n))
+        Hn, Rn, _, _ = tworld.measurement_model_at(random_waypoints(tworld, n, gen))
         An = Hn @ P
         args = (An @ Hn.mT, An, Rn, torch.arange(n, device="cuda"), m)
         for got, want, part in zip(kernels.edge_factor_gain(*args),
@@ -961,12 +999,14 @@ def deploy_shape_checks(gen: torch.Generator) -> dict:
 
 # ------------------------------------------------------------ large-M route
 
-def fine_grid_cfg():
-    """example.yaml's field on FINE_GRID (20 x 20 cells of 2 m): M = 25,
-    A = 800, N = 400."""
-    with open(CONFIG_DIR / "example.yaml") as f:
+def grid_cfg(grid: dict, name: str = "example.yaml"):
+    """The port's copy of config ``name`` on another grid of the same
+    field, nothing else changed: FINE_GRID (20 x 20 cells of 2 m: M = 25,
+    A = 800, N = 400) or FINE_1M_GRID (40 x 40 cells of 1 m: M = 81 on the
+    lattice and 121 in the continuous world, A = 3200, N = 1600)."""
+    with open(CONFIG_DIR / name) as f:
         raw = yaml.safe_load(f)
-    raw["environment"] = dict(FINE_GRID)
+    raw["environment"] = dict(grid)
     return config_from_dict(raw)
 
 
@@ -1009,9 +1049,9 @@ def large_m_rows(gen: torch.Generator) -> dict:
     = 25 times, bound and library call (float32)."""
     log("  large-M route: M = 13, 25, 32 in float32 and float64; M = 25 on the "
         f"{FINE_GRID['x_dim']}x{FINE_GRID['y_dim']} grid at resolution {FINE_GRID['resolution']}")
-    out = {name: {"m_range": "1-32", "checks": []} for name in
+    out = {name: {"checks": []} for name in
            ("spd_inverse", "spd_trace_product", "spd_inverse_factor", "edge_factor_gain")}
-    world = IPPWorld(fine_grid_cfg(), fast_sweeps=True)
+    world = IPPWorld(grid_cfg(FINE_GRID), fast_sweeps=True)
     check(world.H.shape[1] == 25 and world.m_max_cont == 25,
           f"the fine grid's M is {world.H.shape[1]} (continuous {world.m_max_cont}), not 25")
     state = world.init_state(FINE_B, gen)
@@ -1104,6 +1144,160 @@ def large_m_rows(gen: torch.Generator) -> dict:
             f"{t['plain_ms']:.3f} ms, library {t['library_ms']:.3f} ms, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}), {t['bound_ms'] / t['ms']:.1%} of it")
         v["max_abs_err"] = max(e["max_abs_err"] for c in v["checks"] for e in c.values())
+    return out
+
+
+def plain_once(fn):
+    """(output, device ms) of one call of a plain version: at M = 81 and 121
+    one call is seconds of small launches."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def fine_1m_world():
+    """example.yaml on FINE_1M_GRID with fast sweeps, and the host seconds
+    its tables took (numpy, as in the JAX package)."""
+    t = time.perf_counter()
+    world = IPPWorld(grid_cfg(FINE_1M_GRID), fast_sweeps=True)
+    built_s = time.perf_counter() - t
+    check(world.H.shape[1] == 81 and world.m_max_cont == 121 and world.num_actions == 3200,
+          f"the 1 m grid's M is {world.H.shape[1]} (continuous {world.m_max_cont}), "
+          f"A = {world.num_actions}, not 81 (121), 3200")
+    return world, built_s
+
+
+def cta_m_rows(gen: torch.Generator) -> dict:
+    """The CTA route (M >= 33, one CTA per matrix) at the 1 m grid's shapes,
+    float32, timed and held bitwise against the plain versions on the timed
+    inputs: ``spd_inverse`` at (4096, 81, 81) and (4096, 121, 121),
+    ``spd_trace_product`` on the 1 m sweep's two launches at B = FINE_1M_B
+    ((16, 3321, 1600) gather, (1600, 3321, 16) dense), ``spd_inverse_factor``
+    at (1024, 81, 81), ``edge_factor_gain`` at (192, 121, 1600) as CMA-ES's
+    fitness forms it (B·λ = 16 x 12 members, H and R of random waypoints
+    from the continuous model, a per-member mask).  Then, at M =
+    CTA_M_CHECKED, clamped pivots (inf and NaN where the plain versions
+    have them) and float64 with the workspace in global memory.  Returns per
+    kernel name its rows and checks."""
+    log(f"  CTA route: M = 81 and 121 on the {FINE_1M_GRID['x_dim']}x{FINE_1M_GRID['y_dim']} "
+        f"grid at resolution {FINE_1M_GRID['resolution']}; clamped and float64 (global "
+        f"workspace) at M = {CTA_M_CHECKED}")
+    out = {name: {"rows": [], "checks": []} for name in
+           ("spd_inverse", "spd_trace_product", "spd_inverse_factor", "edge_factor_gain")}
+    world, built_s = fine_1m_world()
+    log(f"  the 1 m world's tables took {built_s:.1f} s on the host")
+    state = world.init_state(FINE_1M_B, gen)
+    for _ in range(3):
+        step = torch.randint(0, world.num_actions, (FINE_1M_B,), generator=gen, device="cuda")
+        state = world.step_index(state, step, generator=gen)
+    sweep = record_trace_products(sweep_rewards, world, state)
+    shapes = sorted(tuple(Sp.shape) for Sp, _ in sweep)
+    check(shapes == [(FINE_1M_B, 3321, 1600), (1600, 3321, FINE_1M_B)],
+          f"the 1 m grid's sweep launches have shapes {shapes}")
+    lam = 12
+    P = state.cov.repeat_interleave(lam, dim=0)
+    scen = world.cfg.scenario
+    mask = adaptive_mask(state.mean, torch.diagonal(state.cov, dim1=-2, dim2=-1),
+                         scen.value_threshold, scen.interval_factor).repeat_interleave(lam, dim=0)
+    H, R, _, _ = world.measurement_model_at(random_waypoints(world, FINE_1M_B * lam, gen))
+    A = H @ P
+    edge = (A @ H.mT, A, R.contiguous(), torch.arange(len(A), device="cuda"), mask.contiguous())
+    del P, H, world, state
+    torch.cuda.empty_cache()
+
+    def row(name, label, fn, plain, library, nbytes, ops, graph_launches, shape):
+        want, plain_ms = plain_once(plain)
+        got = fn()
+        want, got = (x if isinstance(x, (list, tuple)) else [x] for x in (want, got))
+        errs = [compare(f"{name} {label}", g, w) for g, w in zip(got, want)]
+        del got, want
+        t = times(fn, graph_launches=graph_launches, calls=graph_launches)
+        b_ms, b_by = bound(nbytes, ops)
+        r = {"label": label, "shape": shape, "dtype": "float32", **t, "plain_ms": plain_ms,
+             "library_ms": cuda_ms(library, 3, warmup=1), "bound_ms": b_ms, "bound_by": b_by,
+             "bound_bytes": nbytes, "max_abs_err": max(e["max_abs_err"] for e in errs)}
+        out[name]["rows"].append(r)
+        log(f"  {name} {label} {shape}: kernel {r['ms']:.4f} ms device (graph), "
+            f"{r['call_ms']:.4f} ms per call, host {r['host_ms']:.4f} ms; plain "
+            f"{plain_ms:.1f} ms, library {r['library_ms']:.3f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}), {b_ms / r['ms']:.1%} of it")
+
+    for m in (81, 121):
+        S = random_spd(REPLAN_B, gen, m)
+        row("spd_inverse", f"M={m}", lambda: kernels.spd_inverse(S),
+            lambda: smallchol.spd_inverse(S),
+            lambda: torch.cholesky_inverse(torch.linalg.cholesky(S)), 2 * S.numel() * 4,
+            REPLAN_B * inverse_ops(m), 10, list(S.shape))
+    del S
+    fulls = [(unpacked(Sp), unpacked(Gp)) for Sp, Gp in sweep]
+    blocks = sum(Sp.shape[0] * Sp.shape[2] for Sp, _ in sweep)
+    row("spd_trace_product", "M=81 the 1 m sweep",
+        lambda: [kernels.spd_trace_product_packed(Sp, Gp) for Sp, Gp in sweep],
+        lambda: [smallchol.spd_trace_product_packed(Sp, Gp) for Sp, Gp in sweep],
+        lambda: [torch.cholesky_solve(G, torch.linalg.cholesky(S_))
+                 .diagonal(dim1=-2, dim2=-1).sum(-1) for S_, G in fulls],
+        (2 * 3321 + 1) * blocks * 4, blocks * trace_ops(81), 5, [blocks, 3321])
+    del fulls, sweep
+    S = random_spd(ZERO_B, gen, 81)
+    row("spd_inverse_factor", "M=81", lambda: kernels.spd_inverse_factor(S),
+        lambda: smallchol.spd_inverse_factor(S),
+        lambda: torch.linalg.cholesky(torch.cholesky_inverse(torch.linalg.cholesky(S))),
+        3 * S.numel() * 4, ZERO_B * inverse_factor_ops(81), 10, list(S.shape))
+    S_raw, A, R, a, mask = edge
+    B, m, n = A.shape
+    nbytes = ((S_raw.numel() + 2 * A.numel() + B + B * m + mask.numel()) * 4
+              + a.numel() * a.element_size())
+    row("edge_factor_gain", "M=121 CMA-ES's fitness", lambda: kernels.edge_factor_gain(*edge),
+        lambda: smallchol.edge_factor_gain(*edge), lambda: library_edge_tail(*edge),
+        nbytes, B * edge_ops(m, n, masked=True, round_bf16=False), 10, [B, m, n])
+    del edge, S_raw, A, R, a, mask
+
+    # clamped pivots, and float64 with the workspace in global memory
+    m = CTA_M_CHECKED
+
+    def record(name, label, got, want, nan=False):
+        parts = {"spd_inverse_factor": ("S^-1", "U"), "edge_factor_gain": ("WcT", "gain")}
+        for g, w, part in zip(got, want, parts.get(name, ("",))):
+            tag = f"{name} M={m} {label} {part}".rstrip()
+            if nan:
+                compare_with_nan(tag, g, w)
+                out[name]["checks"].append({tag: "bitwise or both NaN"})
+            else:
+                out[name]["checks"].append({tag: compare(tag, g, w)})
+
+    S_bad = make_indefinite(random_spd(33, gen, m))
+    record("spd_inverse", "clamped", [kernels.spd_inverse(S_bad)], [smallchol.spd_inverse(S_bad)])
+    record("spd_inverse_factor", "clamped", kernels.spd_inverse_factor(S_bad),
+           smallchol.spd_inverse_factor(S_bad), nan=True)
+    Sp = packed(make_indefinite(random_spd(2 * 7, gen, m)), 2, 7)
+    Gp = packed(random_spd(2 * 7, gen, m), 2, 7)
+    record("spd_trace_product", "clamped (2, T, 7)", [kernels.spd_trace_product_packed(Sp, Gp)],
+           [smallchol.spd_trace_product_packed(Sp, Gp)])
+    bad = list(random_edge_inputs(9, m, 100, torch.float32, gen))
+    bad[0] = make_indefinite(bad[0])
+    record("edge_factor_gain", "clamped (9, M, 100)", kernels.edge_factor_gain(*bad),
+           smallchol.edge_factor_gain(*bad), nan=True)
+    S = random_spd(33, gen, m, torch.float64)
+    Sp, Gp = packed(S[:30], 5, 6), packed(random_spd(30, gen, m, torch.float64), 5, 6)
+    e64 = random_edge_inputs(9, m, 100, torch.float64, gen)
+    want = (smallchol.spd_inverse(S), smallchol.spd_inverse_factor(S),
+            smallchol.spd_trace_product_packed(Sp, Gp), smallchol.edge_factor_gain(*e64))
+    with kernels.cta_workspace_in_global_memory():
+        got = (kernels.spd_inverse(S), kernels.spd_inverse_factor(S),
+               kernels.spd_trace_product_packed(Sp, Gp), kernels.edge_factor_gain(*e64))
+    record("spd_inverse", "float64 global workspace", [got[0]], [want[0]])
+    record("spd_inverse_factor", "float64 global workspace", got[1], want[1])
+    record("spd_trace_product", "float64 global workspace", [got[2]], [want[2]])
+    record("edge_factor_gain", "float64 global workspace", got[3], want[3])
+    for v in out.values():
+        v["max_abs_err"] = max([r["max_abs_err"] for r in v["rows"]]
+                               + [e["max_abs_err"] for c in v["checks"] for e in c.values()
+                                  if isinstance(e, dict)])
     return out
 
 
@@ -1938,8 +2132,24 @@ def cmaes_phase(tcfg) -> dict:
           "CMA-ES waypoints outside the box")
     log(f"  mean uncertainty per step: {np.array2string(unc, precision=3)}")
 
-    # one more replan and its commit, split by CUDA events
     state = res.final_state
+    split, fitness = cmaes_replan_split(planner, world, state, gen)
+    fit_profile = fitness_profile(planner, state, gen)
+    out = {
+        "batch": CMAES_B, "steps": CMAES_STEPS, "popsize": lam, "generations": G, "horizon": H,
+        "run_wall_s": wall, "ms_per_step": wall / CMAES_STEPS * 1e3,
+        "ms_per_mission_replan": wall / (CMAES_B * CMAES_STEPS) * 1e3,
+        "peak_mem_gb": peak, "mean_uncertainty": unc.tolist(), "launches": launches,
+        "replan_split_ms": split, "fitness_call_ms": fitness, "fitness_profile": fit_profile,
+    }
+    log(f"  run: {out['ms_per_step']:.1f} ms per replan step, "
+        f"{out['ms_per_mission_replan']:.4f} ms per mission-replan; peak {peak:.2f} GB")
+    return out
+
+
+def cmaes_replan_split(planner, world, state, gen) -> tuple:
+    """One more replan and its commit, split by CUDA events: (ms per part,
+    ms of each fitness call)."""
     timer = PhaseTimer()
     parts = ((cmaes, "greedy_search_horizon", "greedy_init"), (cmaes, "cma_es_minimize", "cma"),
              (planner, "trajectory_loss", "fitness"), (planner, "eigh", "eigh"),
@@ -1963,17 +2173,7 @@ def cmaes_phase(tcfg) -> dict:
     split["other"] = split["replan"] - split["greedy_init"] - split["cma"] - fitness[-1]
     log("  one replan by CUDA events: " + ", ".join(f"{k} {v:.1f} ms" for k, v in split.items())
         + f"; {len(fitness)} fitness calls, {np.mean(fitness):.2f} ms each")
-    fit_profile = fitness_profile(planner, state, gen)
-    out = {
-        "batch": CMAES_B, "steps": CMAES_STEPS, "popsize": lam, "generations": G, "horizon": H,
-        "run_wall_s": wall, "ms_per_step": wall / CMAES_STEPS * 1e3,
-        "ms_per_mission_replan": wall / (CMAES_B * CMAES_STEPS) * 1e3,
-        "peak_mem_gb": peak, "mean_uncertainty": unc.tolist(), "launches": launches,
-        "replan_split_ms": split, "fitness_call_ms": fitness, "fitness_profile": fit_profile,
-    }
-    log(f"  run: {out['ms_per_step']:.1f} ms per replan step, "
-        f"{out['ms_per_mission_replan']:.4f} ms per mission-replan; peak {peak:.2f} GB")
-    return out
+    return split, fitness
 
 
 def cmaes_agreement_phase(tcfg) -> dict:
@@ -2686,24 +2886,27 @@ def _d_stats(port: list, ref: list) -> dict:
     return {"mean_d": mean, "sd_d": sd, "bound": bound_, "ok": bool(abs(mean) <= bound_)}
 
 
-def fine_grid_greedy(gen: torch.Generator) -> dict:
-    """(a) the greedy mission on FINE_GRID (M = 25) at B = FINE_B for
-    FINE_STEPS steps with the kernels and with their plain versions, from
-    one state and one injected noise."""
-    world = IPPWorld(fine_grid_cfg(), fast_sweeps=True)
+def fine_grid_greedy(gen: torch.Generator, world=None, B: int = FINE_B,
+                     steps: int = FINE_STEPS) -> dict:
+    """The greedy mission on a finer grid (FINE_GRID's M = 25 unless a
+    world is given) at B for ``steps`` steps with the kernels and with their
+    plain versions, from one state and one injected noise."""
+    if world is None:
+        world = IPPWorld(grid_cfg(FINE_GRID), fast_sweeps=True)
+    m = world.H.shape[1]
     planner = GreedyPlanner(world, MissionConfig(type="greedy"))
-    state0 = world.init_state(FINE_B, gen)
-    noise = torch.randn((FINE_STEPS, FINE_B, world.H.shape[1]), generator=gen, device="cuda")
+    state0 = world.init_state(B, gen)
+    noise = torch.randn((steps, B, m), generator=gen, device="cuda")
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    with_kernels = planner.run(FINE_B, FINE_STEPS, init_state=state0, noise=noise)
+    with_kernels = planner.run(B, steps, init_state=state0, noise=noise)
     torch.cuda.synchronize()
     kernel_s = time.perf_counter() - t0
     launches = kernels.launch_counts()
     t0 = time.perf_counter()
     with plain_versions():
-        plain = planner.run(FINE_B, FINE_STEPS, init_state=state0, noise=noise)
+        plain = planner.run(B, steps, init_state=state0, noise=noise)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
     check(kernels.launch_counts() == launches, "a kernel launched under plain_versions()")
@@ -2716,15 +2919,15 @@ def fine_grid_greedy(gen: torch.Generator) -> dict:
               f"fine grid: the beliefs' {f} differ between kernels and plain versions")
     unc = with_kernels.metrics["uncertainty"].mean(axis=0)
     check(bool(np.all(np.diff(unc) < 0)), "fine grid: uncertainty does not fall step over step")
-    log(f"  (a) fine grid (M = 25, A = {world.num_actions}, N = {world.H.shape[2]}), B = "
-        f"{FINE_B} x {FINE_STEPS} steps: actions identical, beliefs bitwise equal; launches "
-        f"{launches}; {kernel_s / FINE_STEPS * 1e3:.1f} ms per step with the kernels, "
-        f"{plain_s / FINE_STEPS * 1e3:.1f} with the plain versions; mean uncertainty "
+    log(f"  fine grid (M = {m}, A = {world.num_actions}, N = {world.H.shape[2]}), B = "
+        f"{B} x {steps} steps: actions identical, beliefs bitwise equal; launches "
+        f"{launches}; {kernel_s / steps * 1e3:.1f} ms per step with the kernels, "
+        f"{plain_s / steps * 1e3:.1f} with the plain versions; mean uncertainty "
         f"{np.array2string(unc, precision=3)}")
-    return {"batch": FINE_B, "steps": FINE_STEPS, "actions_identical": True,
+    return {"batch": B, "steps": steps, "actions_identical": True,
             "beliefs_bitwise_equal": True, "launches": launches,
-            "ms_per_step": kernel_s / FINE_STEPS * 1e3,
-            "plain_ms_per_step": plain_s / FINE_STEPS * 1e3, "mean_uncertainty": unc.tolist()}
+            "ms_per_step": kernel_s / steps * 1e3,
+            "plain_ms_per_step": plain_s / steps * 1e3, "mean_uncertainty": unc.tolist()}
 
 
 def quality_curve(out_dir: pathlib.Path) -> dict:
@@ -2855,6 +3058,133 @@ def quality_phase() -> dict:
     return parts
 
 
+# ------------------------------------------------------------ the 1 m grid
+
+def fine_1m_greedy(world) -> dict:
+    """(a) the greedy mission on the 1 m grid, B = FINE_1M_B, FINE_1M_STEPS
+    steps (a mission cut for time), counted from 0."""
+    planner = GreedyPlanner(world, MissionConfig(type="greedy"))
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    planner.run(FINE_1M_B, max_steps=1, generator=gen)  # warm-up: handles, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = planner.run(FINE_1M_B, max_steps=FINE_1M_STEPS, generator=gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    want = {"spd_inverse": FINE_1M_STEPS, "spd_inverse_factor": 0,
+            "spd_trace_product": 2 * FINE_1M_STEPS, "edge_factor_gain": 0}
+    log(f"  (a) launches in the run: {launches} (want {want})")
+    check(launches == want, "the 1 m greedy launch counts differ from the stated ones")
+    for k in ("rmse", "mll", "uncertainty", "uncertainty_difference"):
+        check(bool(np.isfinite(res.metrics[k]).all()), f"1 m greedy: metric {k} not finite")
+    unc = res.metrics["uncertainty"].mean(axis=0)
+    check(bool(np.all(np.diff(unc) < 0)), "1 m greedy: uncertainty does not fall step over step")
+    check(float(res.budgets.min()) >= 0.0, "1 m greedy: a budget went negative")
+    state = res.final_state
+    action = planner.plan(state, gen, 0)
+    plan_ms = cuda_ms(lambda: planner.plan(state, gen, 0), 3, warmup=1)
+    commit_ms = cuda_ms(lambda: world.step_index(state, action, generator=gen), 3, warmup=1)
+    out = {"batch": FINE_1M_B, "steps": FINE_1M_STEPS, "run_wall_s": wall,
+           "ms_per_step": wall / FINE_1M_STEPS * 1e3, "plan_ms": plan_ms, "commit_ms": commit_ms,
+           "peak_mem_gb": peak, "mean_uncertainty": unc.tolist(), "launches": launches}
+    log(f"  (a) 1 m greedy, B = {FINE_1M_B} x {FINE_1M_STEPS} steps: {out['ms_per_step']:.1f} "
+        f"ms per step; sweep (plan) {plan_ms:.1f} ms, commit {commit_ms:.2f} ms; peak "
+        f"{peak:.2f} GB; mean uncertainty {np.array2string(unc, precision=3)}")
+    return out
+
+
+def fine_1m_cmaes() -> dict:
+    """(c) CMA-ES on temperature_cmaes.yaml at 1 m, B = FINE_1M_CMAES_B, one
+    replan, counted from 0; then the kernels bitwise against the plain
+    versions on the replan's own first ``edge_factor_gain`` inputs."""
+    tcfg = grid_cfg(FINE_1M_GRID, "temperature_cmaes.yaml")
+    t = time.perf_counter()
+    world = IPPWorld(tcfg)
+    built_s = time.perf_counter() - t
+    check(world.m_max_cont == 121, f"the 1 m continuous M is {world.m_max_cont}, not 121")
+    mc = cmaes_mission(tcfg)
+    H, G, lam = mc.episode_horizon, mc.cma_maxiter, mc.cma_popsize
+    planner = CMAESPlanner(world, mc)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    warm = CMAESPlanner(world, dataclasses.replace(mc, cma_maxiter=1))
+    warm.run(FINE_1M_CMAES_B, max_steps=1, generator=gen)  # warm-up: cuBLAS, cuSOLVER
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launch = kernels.edge_factor_gain
+    captured = []
+
+    def capture(*args):
+        if not captured:
+            captured.append(args)
+        return launch(*args)
+
+    kernels.reset_launch_counts()
+    capture.launches = 0  # the wrapper counts its launch on the name it is bound to
+    kernels.edge_factor_gain = capture
+    try:
+        t0 = time.perf_counter()
+        res = planner.run(FINE_1M_CMAES_B, max_steps=1, generator=gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    finally:
+        kernels.edge_factor_gain = launch
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    want = {"edge_factor_gain": G * H + H, "spd_trace_product": H * 2, "spd_inverse": H + 1,
+            "spd_inverse_factor": 0}
+    log(f"  (c) launches in the replan: {launches} (want {want})")
+    check(launches == want, "the 1 m CMA-ES launch counts differ from the stated ones")
+    for k in ("rmse", "mll", "uncertainty", "uncertainty_difference"):
+        check(bool(np.isfinite(res.metrics[k]).all()), f"1 m CMA-ES: metric {k} not finite")
+    unc = res.metrics["uncertainty"].mean(axis=0)
+    check(bool(unc[-1] < unc[0]), "1 m CMA-ES: uncertainty does not fall")
+    check(float(res.budgets.min()) >= 0.0, "1 m CMA-ES: a budget went negative")
+    split, fitness = cmaes_replan_split(planner, world, res.final_state, gen)
+    args = captured[0]
+    check(tuple(args[1].shape) == (FINE_1M_CMAES_B * lam, 121, 1600),
+          f"the first fitness launch's A is {tuple(args[1].shape)}")
+    errs = [compare(f"edge_factor_gain the replan's first fitness launch {tuple(args[1].shape)} "
+                    f"({part})", got, want_)
+            for got, want_, part in zip(launch(*args), smallchol.edge_factor_gain(*args),
+                                        ("WcT", "gain"))]
+    out = {"batch": FINE_1M_CMAES_B, "replans": 1, "popsize": lam, "generations": G,
+           "horizon": H, "world_build_s": built_s, "run_wall_s": wall,
+           "ms_per_replan": wall * 1e3, "peak_mem_gb": peak, "launches": launches,
+           "replan_split_ms": split, "fitness_share": sum(fitness) / split["replan"],
+           "fitness_call_ms": fitness, "mean_uncertainty": unc.tolist(),
+           "captured_edge_max_abs_err": max(e["max_abs_err"] for e in errs)}
+    log(f"  (c) 1 m CMA-ES, B = {FINE_1M_CMAES_B}, one replan: {wall * 1e3:.1f} ms (fitness "
+        f"{out['fitness_share']:.0%} of the timed replan); peak {peak:.2f} GB; the world's "
+        f"tables {built_s:.1f} s")
+    return out
+
+
+def fine_1m_phase() -> dict:
+    log(f"== the 1 m grid: example.yaml and temperature_cmaes.yaml on {FINE_1M_GRID['x_dim']}x"
+        f"{FINE_1M_GRID['y_dim']} cells of {FINE_1M_GRID['resolution']} m (lattice M = 81, "
+        f"continuous M = 121; allowance {FINE_1M_ALLOWANCE_S} s)")
+    parts = {}
+    t = time.perf_counter()
+    world, parts["world_build_s"] = fine_1m_world()
+    parts["greedy"] = fine_1m_greedy(world)
+    log("  (b) agreement:")
+    parts["agreement"] = fine_grid_greedy(torch.Generator(device="cuda").manual_seed(18), world,
+                                          FINE_1M_AGREE_B, 1)
+    del world
+    torch.cuda.empty_cache()
+    parts["greedy_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    parts["cmaes"] = fine_1m_cmaes()
+    parts["cmaes_s"] = time.perf_counter() - t
+    log(f"  1 m parts: greedy and agreement {parts['greedy_s']:.1f} s (the world's tables "
+        f"{parts['world_build_s']:.1f} s), CMA-ES {parts['cmaes_s']:.1f} s")
+    return parts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs an NVIDIA card",
@@ -2919,6 +3249,7 @@ def main() -> int:
     deploy = timed("deploy", deploy_phase, cfg)
     multidevice = timed("multidevice", multidevice_phase)
     quality = timed("quality", quality_phase)
+    fine_1m = timed("fine_1m", fine_1m_phase)
     pr6_s = phase_s["static"] + phase_s["cmaes"] + phase_s["cmaes_agreement"]
     pr7_s = phase_s["classic"] + phase_s["classic_agreement"] + phase_s["entry_points"]
     pr8_s = phase_s["deploy"] + phase_s["multidevice"]
@@ -2928,7 +3259,8 @@ def main() -> int:
         f"static + cmaes + cmaes_agreement {pr6_s:.1f} (allowance 60); "
         f"classic + classic_agreement + entry_points {pr7_s:.1f} (allowance 120); "
         f"deploy + multidevice {pr8_s:.1f} (allowance {NEW_PHASES_ALLOWANCE_S}); "
-        f"quality {phase_s['quality']:.1f} (allowance {QUALITY_ALLOWANCE_S})")
+        f"quality {phase_s['quality']:.1f} (allowance {QUALITY_ALLOWANCE_S}); "
+        f"fine_1m {phase_s['fine_1m']:.1f} (allowance {FINE_1M_ALLOWANCE_S})")
     for r in rows:  # over the main paths, each counted from 0
         r["launches_by_path"] = {"greedy": greedy["launches"][r["name"]],
                                  "zero": zero["launches"][r["name"]],
@@ -2940,7 +3272,9 @@ def main() -> int:
                                  "deploy": deploy["launches"][r["name"]],
                                  "multidevice": multidevice["launches"][r["name"]],
                                  "fine_grid": quality["fine_grid"]["launches"][r["name"]],
-                                 "quality": quality["curve"]["launches"][r["name"]]}
+                                 "quality": quality["curve"]["launches"][r["name"]],
+                                 "fine_1m_greedy": fine_1m["greedy"]["launches"][r["name"]],
+                                 "fine_1m_cmaes": fine_1m["cmaes"]["launches"][r["name"]]}
         r["launches"] = sum(r["launches_by_path"].values())
 
     out_dir = ROOT / "chiprun_out"
@@ -2953,12 +3287,12 @@ def main() -> int:
         "training_agreement": training_agreement, "static": static, "cmaes": cmaes_run,
         "cmaes_agreement": cmaes_agreement, "classic": classic,
         "classic_agreement": classic_agreement, "entry_points": entry_points,
-        "deploy": deploy, "multidevice": multidevice, "quality": quality,
+        "deploy": deploy, "multidevice": multidevice, "quality": quality, "fine_1m": fine_1m,
     }, indent=1))
 
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "m_range",
-            "m25")
+            "m25", "m81_m121")
     log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

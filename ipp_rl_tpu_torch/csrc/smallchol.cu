@@ -136,6 +136,33 @@
 // A simple design, not a fast one: at M = 25 a warp does ~M^2 dependent
 // steps with most lanes idle.
 //
+// The CTA route (M >= 33, any M; the same four entry points, and
+// edge_factor_gain at M <= 12 where the register route's shared slices of N
+// columns do not fit a CTA): the warp route lifted to a CTA.  Each matrix
+// (each packed block, each mission) is one CTA's, of ceil(M/32) warps (at
+// most 1024 threads; edge_factor_gain at least 256), thread i owning row i
+// (rows i, i + 1024, ... past 1024):
+//   Cholesky, column by column (cta_cholesky), in place on the staged lower
+//     triangle: each thread forms s(i,j) - sum_k L[i][k] L[j][k] (k in
+//     order); row j's sum is the pivot, passed on through the workspace
+//     between two __syncthreads();
+//   forward substitution (cta_invert_lower): thread j runs down column j;
+//   the entries of S^-1 (each a sum over k in order) spread over the CTA;
+//   the second Cholesky (spd_inverse_factor, edge_factor_gain) as the first.
+// The workspace is two packed triangles, X and Y (M(M+1) elements: 26.5 KB
+// at M = 81 and 59 KB at M = 121 in float32, 118 KB at M = 121 in
+// float64), the pivot, and for edge_factor_gain the N masked squares.  It
+// lives in shared memory up to kMaxSharedBytes per CTA (every M <= 169 in
+// float64), else in global memory (L2-resident): the same code through
+// another pointer, a caller-allocated slice per CTA for kWorkspaceCtas CTAs
+// that stride over the batch (smallchol_workspace_bytes says how much).
+// The trace product's M(M+1)/2 terms go to X and thread 0 adds them up in
+// order.  edge_factor_gain forms U^T A with the threads on consecutive
+// columns of A (global memory), kWctRows rows of WcT per pass over a
+// column, each row's sum in _small_mm order; warp 0 then walks the masked
+// squares in the warp route's lane order and xor tree, so a CTA of any
+// width gives the warp route's gain bit for bit.
+//
 // Numerics: the operations and their order are those of the plain PyTorch
 // versions (ops/smallchol.py), and the library is built with -fmad=false
 // (no multiply-add contraction) and IEEE division and square root, so on
@@ -144,8 +171,8 @@
 //
 // Interface: plain C, loaded with ctypes by ops/kernels.py; pointers and
 // the stream arrive as void*.  Each launcher returns 0, a cudaError_t from
-// cudaGetLastError() after the launch, or -1 for an unsupported M (outside
-// 1..32), dtype or size (nothing launched).
+// cudaGetLastError() after the launch, -1 for an unsupported M (below 1),
+// dtype or size, or -2 for a missing global workspace (nothing launched).
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -154,7 +181,7 @@
 namespace {
 
 constexpr int kMaxUnrolledM = 12;  // the register-resident route: M = 1..12
-constexpr int kMaxM = 32;          // the large-M route: M = 13..32
+constexpr int kMaxWarpM = 32;      // the warp route: M = 13..32; the CTA route takes M >= 33
 constexpr int kLargeWarps = 4;     // matrices, and warps, per CTA of the large-M route
 constexpr int kInverseTile = 32;  // matrices, and threads, per CTA of spd_inverse
 constexpr int kTraceThreads = 128;
@@ -387,15 +414,20 @@ __device__ __forceinline__ T round_to_bf16(T x) {
 
 // elements of one warp's slice of shared memory: the A block (M * N), then
 // S_raw and two M x M scratch matrices, each slice a multiple of 16 bytes
-template <int M, typename T>
-__host__ __device__ constexpr int edge_a_elems(int n) {
-  return (M * n * static_cast<int>(sizeof(T)) + 15) / 16 * 16 / static_cast<int>(sizeof(T));
+template <typename T>
+__host__ __device__ constexpr int64_t edge_a_elems(int m, int n) {
+  return (m * static_cast<int64_t>(n) * sizeof(T) + 15) / 16 * 16 / sizeof(T);
 }
 
-template <int M, typename T>
-__host__ __device__ constexpr int edge_warp_elems(int n) {
-  return edge_a_elems<M, T>(n) +
-         (3 * M * M * static_cast<int>(sizeof(T)) + 15) / 16 * 16 / static_cast<int>(sizeof(T));
+template <typename T>
+__host__ __device__ constexpr int64_t edge_warp_elems(int m, int n) {
+  return edge_a_elems<T>(m, n) + (3 * m * m * sizeof(T) + 15) / 16 * 16 / sizeof(T);
+}
+
+// bytes of dynamic shared memory of one CTA of edge_factor_gain_kernel
+template <typename T>
+int64_t edge_register_bytes(int m, int n) {
+  return kEdgeWarps * edge_warp_elems<T>(m, n) * static_cast<int64_t>(sizeof(T));
 }
 
 // Cholesky across the warp: lane `row` (rows past M - 1 repeat row M - 1)
@@ -428,8 +460,8 @@ edge_factor_gain_kernel(const T* __restrict__ s_raw, const T* __restrict__ a_blk
   const int64_t b = static_cast<int64_t>(blockIdx.x) * kEdgeWarps + warp;
   if (b >= n_missions) return;  // whole warps only: nothing below syncs the CTA
 
-  T* A = reinterpret_cast<T*>(edge_smem) + warp * edge_warp_elems<M, T>(n);
-  T* S = A + edge_a_elems<M, T>(n);  // S_raw, row-major
+  T* A = reinterpret_cast<T*>(edge_smem) + warp * edge_warp_elems<T>(M, n);
+  T* S = A + edge_a_elems<T>(M, n);  // S_raw, row-major
   T* X = S + M * M;                  // L, then S^-1 (lower triangle)
   T* Y = X + M * M;                  // L^-1 (lower triangle), then U
   warp_copy_async(S, s_raw + b * (M * M), M * M, lane);
@@ -749,13 +781,13 @@ edge_factor_gain_large_kernel(const T* __restrict__ s_raw, const T* __restrict__
   for (int c = 0, col = lane; col - lane < n; ++c, col += 32) {
     T sq = T(0);
     if (col < n) {
-      T a[kMaxM];
+      T a[kMaxWarpM];
 #pragma unroll
-      for (int k = 0; k < kMaxM; ++k) a[k] = k < m ? __ldg(A + k * n + col) : T(0);
+      for (int k = 0; k < kMaxWarpM; ++k) a[k] = k < m ? __ldg(A + k * n + col) : T(0);
       for (int r = 0; r < m; ++r) {
         T acc = Y[r] * a[0];  // U[0][r] A[0][col]
 #pragma unroll
-        for (int k = 1; k < kMaxM; ++k) {
+        for (int k = 1; k < kMaxWarpM; ++k) {
           if (k < m) acc = acc + Y[k * ld + r] * a[k];
         }
         if (round_bf16) acc = round_to_bf16(acc);
@@ -771,18 +803,404 @@ edge_factor_gain_large_kernel(const T* __restrict__ s_raw, const T* __restrict__
   if (lane == 0) gain[b] = g;
 }
 
+// a kernel that needs more than 48 KB of dynamic shared memory is allowed
+// it first: cudaSuccess, or the error that refused the size
+template <typename K>
+int allow_shared(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
+}
+
+// ---------------------------------------------------------------- CTA route (M >= 33)
+
+// position of row i of a packed lower triangle: entry (i, j) lies at tri(i) + j
+__host__ __device__ __forceinline__ int64_t tri(int i) {
+  return static_cast<int64_t>(i) * (i + 1) / 2;
+}
+
+// calls f(e, i, j) for the packed entries e = threadIdx.x, + blockDim.x, ...
+// of an m x m lower triangle, (i, j) found by walking down the rows
+template <typename F>
+__device__ __forceinline__ void for_packed_entries(int m, F f) {
+  int i = 0;
+  int64_t row = 0;  // tri(i)
+  for (int64_t e = threadIdx.x; e < tri(m); e += blockDim.x) {
+    while (e >= row + i + 1) {
+      row += i + 1;
+      ++i;
+    }
+    f(e, i, static_cast<int>(e - row));
+  }
+}
+
+// In place, across the CTA: on entry L holds the lower triangle of the SPD
+// matrix (packed), on exit its Cholesky factor.  Column by column: each
+// thread owns the rows i = threadIdx.x, + blockDim.x, ... and forms
+// s(i, j) - sum_k L[i][k] L[j][k] (k in order, as `cholesky`); row j's sum
+// is the pivot, passed on through `pivot` (one element of the workspace).
+template <typename T>
+__device__ __forceinline__ void cta_cholesky(T* L, int m, T* pivot) {
+  for (int j = 0; j < m; ++j) {
+    const T* Lj = L + tri(j);
+    for (int i = threadIdx.x; i < m; i += blockDim.x) {
+      if (i < j) continue;
+      T* Li = L + tri(i);
+      T acc = Li[j];
+      for (int k = 0; k < j; ++k) acc = acc - Li[k] * Lj[k];
+      if (i == j) {
+        *pivot = acc;
+      } else {
+        Li[j] = acc;
+      }
+    }
+    __syncthreads();
+    const T d = sqrt(clamp_pivot(*pivot));
+    const T inv_d = T(1) / d;
+    for (int i = threadIdx.x; i < m; i += blockDim.x) {
+      if (i == j) {
+        L[tri(j) + j] = d;
+      } else if (i > j) {
+        L[tri(i) + j] = L[tri(i) + j] * inv_d;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Li = L^-1 (both packed) by forward substitution, the thread that owns
+// column c running down it in the order of `inverse_factor`
+template <typename T>
+__device__ __forceinline__ void cta_invert_lower(const T* L, int m, T* Li) {
+  for (int c = threadIdx.x; c < m; c += blockDim.x) {
+    const T diag = T(1) / L[tri(c) + c];
+    Li[tri(c) + c] = diag;
+    for (int i = c + 1; i < m; ++i) {
+      const T* Lr = L + tri(i);
+      T acc = Lr[c] * diag;
+      int64_t p = tri(c + 1) + c;  // Li[k][c], k = c + 1
+      for (int k = c + 1; k < i; ++k) {
+        acc = acc + Lr[k] * Li[p];
+        p += k + 1;
+      }
+      Li[tri(i) + c] = -acc / Lr[i];
+    }
+  }
+  __syncthreads();
+}
+
+// S^-1[i][j], i >= j, from the packed Li, in the order of `inverse_entry`
+template <typename T>
+__device__ __forceinline__ T cta_inverse_entry(const T* Li, int m, int i, int j) {
+  int64_t p = tri(i);
+  T acc = Li[p + i] * Li[p + j];
+  for (int k = i + 1; k < m; ++k) {
+    p += k;
+    acc = acc + Li[p + i] * Li[p + j];
+  }
+  return acc;
+}
+
+// Cholesky (X in place), L^-1 into Y, then the lower triangle of S^-1 into
+// X: on entry X holds the SPD matrix's lower triangle, packed
+template <typename T>
+__device__ __forceinline__ void cta_inverse(T* X, T* Y, int m, T* pivot) {
+  cta_cholesky(X, m, pivot);
+  cta_invert_lower(X, m, Y);
+  for_packed_entries(m, [&](int64_t e, int i, int j) { X[e] = cta_inverse_entry(Y, m, i, j); });
+  __syncthreads();
+}
+
+// the full m x m matrix whose lower triangle X holds (packed): symmetric,
+// or with zeros above the diagonal
+template <typename T>
+__device__ __forceinline__ void cta_store(T* out, const T* X, int m, bool symmetric) {
+  for (int64_t e = threadIdx.x; e < static_cast<int64_t>(m) * m; e += blockDim.x) {
+    const int i = static_cast<int>(e / m), j = static_cast<int>(e % m);
+    out[e] = i >= j ? X[tri(i) + j] : (symmetric ? X[tri(j) + i] : T(0));
+  }
+}
+
+// elements of one CTA's workspace: the pivot (16 bytes), X and Y (two
+// packed triangles) and, for edge_factor_gain, the n squares
+template <typename T>
+__host__ __device__ constexpr int64_t cta_pivot_elems() {
+  return 16 / static_cast<int64_t>(sizeof(T));
+}
+
+template <typename T>
+int64_t cta_workspace_elems(int m, int squares) {
+  const int64_t elems = cta_pivot_elems<T>() + 2 * tri(m) + squares;
+  return (elems + 31) / 32 * 32;  // a multiple of 128 bytes, so each CTA's slice stays aligned
+}
+
+// the workspace of CTA blockIdx.x: shared memory, or its slice of `global`
+template <typename T>
+__device__ __forceinline__ T* cta_workspace(T* global, int64_t elems) {
+  extern __shared__ __align__(16) unsigned char cta_smem[];
+  return global == nullptr ? reinterpret_cast<T*>(cta_smem) : global + blockIdx.x * elems;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(1024)
+spd_inverse_cta_kernel(const T* __restrict__ s, T* __restrict__ out, int64_t n, int m,
+                       T* workspace, int64_t ws_elems) {
+  T* pivot = cta_workspace(workspace, ws_elems);
+  T* X = pivot + cta_pivot_elems<T>();
+  T* Y = X + tri(m);
+  const int64_t mm = static_cast<int64_t>(m) * m;
+  for (int64_t b = blockIdx.x; b < n; b += gridDim.x) {
+    const T* sb = s + b * mm;
+    for_packed_entries(m, [&](int64_t e, int i, int j) { X[e] = sb[static_cast<int64_t>(i) * m + j]; });
+    __syncthreads();
+    cta_inverse(X, Y, m, pivot);
+    cta_store(out + b * mm, X, m, true);
+    __syncthreads();  // the next matrix overwrites X
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(1024)
+spd_inverse_factor_cta_kernel(const T* __restrict__ s, T* __restrict__ inv,
+                              T* __restrict__ chol, int64_t n, int m, T* workspace,
+                              int64_t ws_elems) {
+  T* pivot = cta_workspace(workspace, ws_elems);
+  T* X = pivot + cta_pivot_elems<T>();
+  T* Y = X + tri(m);
+  const int64_t mm = static_cast<int64_t>(m) * m;
+  for (int64_t b = blockIdx.x; b < n; b += gridDim.x) {
+    const T* sb = s + b * mm;
+    for_packed_entries(m, [&](int64_t e, int i, int j) { X[e] = sb[static_cast<int64_t>(i) * m + j]; });
+    __syncthreads();
+    cta_inverse(X, Y, m, pivot);
+    cta_store(inv + b * mm, X, m, true);
+    __syncthreads();  // the store reads X before the factorisation overwrites it
+    cta_cholesky(X, m, pivot);  // U = chol(S^-1)
+    cta_store(chol + b * mm, X, m, false);
+    __syncthreads();
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(1024)
+spd_trace_product_cta_kernel(const T* __restrict__ s, const T* __restrict__ g,
+                             T* __restrict__ out, int64_t outer, int64_t inner, int m,
+                             T* workspace, int64_t ws_elems) {
+  T* pivot = cta_workspace(workspace, ws_elems);
+  T* X = pivot + cta_pivot_elems<T>();
+  T* Y = X + tri(m);
+  const int64_t kT = tri(m);
+  for (int64_t t = blockIdx.x; t < outer * inner; t += gridDim.x) {
+    const int64_t o = t / inner;
+    const int64_t base = o * (kT - 1) * inner + t;  // (o*T)*inner + (t - o*inner)
+    for_packed_entries(m, [&](int64_t e, int, int) { X[e] = s[base + e * inner]; });
+    __syncthreads();
+    cta_cholesky(X, m, pivot);
+    cta_invert_lower(X, m, Y);
+    // X is spent: the terms, in packed order
+    for_packed_entries(m, [&](int64_t e, int i, int j) {
+      T term = cta_inverse_entry(Y, m, i, j) * g[base + e * inner];
+      if (i != j) term = term + term;
+      X[e] = term;
+    });
+    __syncthreads();
+    if (threadIdx.x == 0) {  // the sum in packed order, as the plain version's
+      T total = X[0];
+      for (int64_t e = 1; e < kT; ++e) total = total + X[e];
+      out[t] = total;
+    }
+    __syncthreads();
+  }
+}
+
+constexpr int kWctRows = 8;  // rows of WcT that one pass over A's column accumulates
+
+template <typename T>
+__global__ void __launch_bounds__(1024)
+edge_factor_gain_cta_kernel(const T* __restrict__ s_raw, const T* __restrict__ a_blk,
+                            const T* __restrict__ r_table, const int64_t* __restrict__ action,
+                            const T* __restrict__ mask, int64_t mask_stride,
+                            T* __restrict__ wct, T* __restrict__ gain, int64_t n_missions,
+                            int n, int m, int round_bf16, T* workspace, int64_t ws_elems) {
+  T* pivot = cta_workspace(workspace, ws_elems);
+  T* X = pivot + cta_pivot_elems<T>();  // S, L, S^-1, then U
+  T* Y = X + tri(m);                    // L^-1
+  T* SQ = Y + tri(m);                   // the masked squares of each column
+  const int64_t mm = static_cast<int64_t>(m) * m;
+  for (int64_t b = blockIdx.x; b < n_missions; b += gridDim.x) {
+    const T* S = s_raw + b * mm;
+    const T* R = r_table + __ldg(reinterpret_cast<const long long*>(action) + b) * m;
+    // the lower triangle of S = 0.5 (S_raw + S_raw^T) + diag(R)
+    for_packed_entries(m, [&](int64_t e, int i, int j) {
+      X[e] = T(0.5) * (S[static_cast<int64_t>(i) * m + j] + S[static_cast<int64_t>(j) * m + i]) +
+             (i == j ? R[i] : T(0));
+    });
+    __syncthreads();
+    cta_inverse(X, Y, m, pivot);
+    cta_cholesky(X, m, pivot);  // U = chol(S^-1)
+
+    // WcT = U^T A in _small_mm order, kWctRows rows per pass over a column
+    // of A (read from global memory, the threads on consecutive columns);
+    // then each column's squares, summed over m in order, and masked
+    const T* A = a_blk + b * m * static_cast<int64_t>(n);
+    T* out = wct + b * m * static_cast<int64_t>(n);
+    const T* mrow = mask == nullptr ? nullptr : mask + b * mask_stride;
+    for (int col = threadIdx.x; col < n; col += blockDim.x) {
+      T sq = T(0);
+      for (int r0 = 0; r0 < m; r0 += kWctRows) {
+        T acc[kWctRows];
+        const T a0 = __ldg(A + col);
+#pragma unroll
+        for (int q = 0; q < kWctRows; ++q) acc[q] = (r0 + q == 0 ? X[0] : T(0)) * a0;
+        int64_t p = 0;  // tri(k)
+        for (int k = 1; k < m; ++k) {
+          p += k;
+          const T a = __ldg(A + static_cast<int64_t>(k) * n + col);
+#pragma unroll
+          for (int q = 0; q < kWctRows; ++q) {
+            const int r = r0 + q;  // U[k][r], zero above the diagonal and past row m - 1
+            acc[q] = acc[q] + (k >= r ? X[p + r] : T(0)) * a;
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < kWctRows; ++q) {
+          const int r = r0 + q;
+          if (r < m) {
+            const T v = round_bf16 ? round_to_bf16(acc[q]) : acc[q];
+            out[static_cast<int64_t>(r) * n + col] = v;
+            sq = r == 0 ? v * v : sq + v * v;
+          }
+        }
+      }
+      if (mrow != nullptr) sq = sq * __ldg(mrow + col);
+      SQ[col] = sq;
+    }
+    __syncthreads();
+    // gain: warp 0 walks the squares in the warp route's order (lane l adds
+    // columns l, l + 32, ... in turn, zero past n), then the xor tree
+    if (threadIdx.x < 32) {
+      const int lane = static_cast<int>(threadIdx.x);
+      T gsum = T(0);
+      for (int c = 0, col = lane; col - lane < n; ++c, col += 32) {
+        const T sq = col < n ? SQ[col] : T(0);
+        gsum = c == 0 ? sq : gsum + sq;
+      }
+#pragma unroll
+      for (int w = 16; w >= 1; w >>= 1) gsum = gsum + __shfl_xor_sync(kFullMask, gsum, w);
+      if (lane == 0) gain[b] = gsum;
+    }
+    __syncthreads();
+  }
+}
+
+// the CTA route's workspace limit in shared memory (bytes per CTA); past it
+// the workspace is global memory.  Tests lower it to drive the global path.
+int g_cta_shared_limit = kMaxSharedBytes;
+constexpr int kWorkspaceCtas = 264;  // CTAs of a launch whose workspace is global memory
+
+// threads of a CTA: one per row (a whole number of warps, at most 1024);
+// edge_factor_gain takes at least 256, which share the columns of U^T A
+inline int cta_threads(int m, bool edge) {
+  int t = (m + 31) / 32 * 32;
+  if (edge && t < 256) t = 256;
+  return t < 1024 ? t : 1024;
+}
+
+// where the CTA route keeps a launch's workspace: `shared_bytes` > 0 for
+// shared memory, else `global_bytes` of global memory for `ctas` CTAs
+struct CtaPlan {
+  int64_t ws_elems;
+  unsigned ctas;
+  size_t shared_bytes;
+  int64_t global_bytes;
+};
+
+template <typename T>
+CtaPlan cta_plan(int m, int squares, int64_t count) {
+  CtaPlan p;
+  p.ws_elems = cta_workspace_elems<T>(m, squares);
+  const int64_t bytes = p.ws_elems * static_cast<int64_t>(sizeof(T));
+  const bool shared = bytes <= g_cta_shared_limit;
+  const int64_t cap = shared ? 0x7fffffff : kWorkspaceCtas;
+  p.ctas = static_cast<unsigned>(count < cap ? count : cap);
+  p.shared_bytes = shared ? static_cast<size_t>(bytes) : 0;
+  p.global_bytes = shared ? 0 : bytes * p.ctas;
+  return p;
+}
+
+// -2 when the caller's workspace is missing where the plan needs one
+inline int check_workspace(const CtaPlan& p, const void* workspace) {
+  return p.global_bytes > 0 && workspace == nullptr ? -2 : 0;
+}
+
+template <typename T>
+T* plan_workspace(const CtaPlan& p, void* workspace) {
+  return p.shared_bytes > 0 ? nullptr : static_cast<T*>(workspace);
+}
+
+template <typename T>
+int launch_inverse_cta(const void* s, void* out, int64_t n, int m, void* workspace,
+                       cudaStream_t stream) {
+  const CtaPlan p = cta_plan<T>(m, 0, n);
+  auto kernel = spd_inverse_cta_kernel<T>;
+  if (int err = check_workspace(p, workspace)) return err;
+  if (int err = allow_shared(kernel, p.shared_bytes)) return err;
+  kernel<<<p.ctas, cta_threads(m, false), p.shared_bytes, stream>>>(
+      static_cast<const T*>(s), static_cast<T*>(out), n, m, plan_workspace<T>(p, workspace),
+      p.ws_elems);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_inverse_factor_cta(const void* s, void* inv, void* chol, int64_t n, int m,
+                              void* workspace, cudaStream_t stream) {
+  const CtaPlan p = cta_plan<T>(m, 0, n);
+  auto kernel = spd_inverse_factor_cta_kernel<T>;
+  if (int err = check_workspace(p, workspace)) return err;
+  if (int err = allow_shared(kernel, p.shared_bytes)) return err;
+  kernel<<<p.ctas, cta_threads(m, false), p.shared_bytes, stream>>>(
+      static_cast<const T*>(s), static_cast<T*>(inv), static_cast<T*>(chol), n, m,
+      plan_workspace<T>(p, workspace), p.ws_elems);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_trace_cta(const void* s, const void* g, void* out, int64_t outer, int64_t inner,
+                     int m, void* workspace, cudaStream_t stream) {
+  const CtaPlan p = cta_plan<T>(m, 0, outer * inner);
+  auto kernel = spd_trace_product_cta_kernel<T>;
+  if (int err = check_workspace(p, workspace)) return err;
+  if (int err = allow_shared(kernel, p.shared_bytes)) return err;
+  kernel<<<p.ctas, cta_threads(m, false), p.shared_bytes, stream>>>(
+      static_cast<const T*>(s), static_cast<const T*>(g), static_cast<T*>(out), outer, inner, m,
+      plan_workspace<T>(p, workspace), p.ws_elems);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_edge_cta(const void* s, const void* a_blk, const void* r, const void* action,
+                    const void* mask, int64_t mask_stride, void* wct, void* gain,
+                    int64_t n_missions, int n, int m, int round_bf16, void* workspace,
+                    cudaStream_t stream) {
+  const CtaPlan p = cta_plan<T>(m, n, n_missions);
+  auto kernel = edge_factor_gain_cta_kernel<T>;
+  if (int err = check_workspace(p, workspace)) return err;
+  if (int err = allow_shared(kernel, p.shared_bytes)) return err;
+  kernel<<<p.ctas, cta_threads(m, true), p.shared_bytes, stream>>>(
+      static_cast<const T*>(s), static_cast<const T*>(a_blk), static_cast<const T*>(r),
+      static_cast<const int64_t*>(action), static_cast<const T*>(mask), mask_stride,
+      static_cast<T*>(wct), static_cast<T*>(gain), n_missions, n, m, round_bf16,
+      plan_workspace<T>(p, workspace), p.ws_elems);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // bytes of dynamic shared memory for kLargeWarps warps of `elems` each; a
 // kernel that needs more than 48 KB is allowed it first.  cudaSuccess, or
 // the error that refused the size (nothing launched)
 template <typename K>
 int large_smem_bytes(K kernel, int elems, int elem_size, size_t* bytes) {
   *bytes = static_cast<size_t>(kLargeWarps) * elems * elem_size;
-  if (*bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(*bytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return 0;
+  return allow_shared(kernel, *bytes);
 }
 
 inline unsigned large_blocks(int64_t n) {
@@ -866,15 +1284,10 @@ template <int M, typename T>
 int launch_edge(const void* s, const void* a_blk, const void* r, const void* action,
                 const void* mask, int64_t mask_stride, void* wct, void* gain, int64_t n_missions,
                 int n, int round_bf16, cudaStream_t stream) {
-  const int64_t bytes =
-      static_cast<int64_t>(kEdgeWarps) * edge_warp_elems<M, T>(n) * static_cast<int64_t>(sizeof(T));
+  const int64_t bytes = edge_register_bytes<T>(M, n);
   if (bytes > kMaxSharedBytes) return -1;
   auto kernel = edge_factor_gain_kernel<M, T>;
-  if (bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  if (int err = allow_shared(kernel, static_cast<size_t>(bytes))) return err;
   const unsigned blocks = static_cast<unsigned>((n_missions + kEdgeWarps - 1) / kEdgeWarps);
   kernel<<<blocks, kEdgeWarps * 32, static_cast<size_t>(bytes), stream>>>(
       static_cast<const T*>(s), static_cast<const T*>(a_blk), static_cast<const T*>(r),
@@ -883,9 +1296,10 @@ int launch_edge(const void* s, const void* a_blk, const void* r, const void* act
   return static_cast<int>(cudaGetLastError());
 }
 
-// calls F::run<M, T>() for M = 1..kMaxUnrolledM and F::run_large<T>(m) for
-// the large-M route; -1 for an unsupported M (nothing launched), else what
-// the launcher returns (0 or a cudaError_t)
+// calls F::run<M, T>() for M = 1..kMaxUnrolledM, F::run_large<T>(m) for
+// the warp route (M = 13..32) and F::run_cta<T>(m) for M >= 33; -1 for
+// M < 1 (nothing launched), else what the launcher returns (0, a
+// cudaError_t, or -2 for a missing workspace)
 template <typename T, typename F>
 int dispatch_m(int m, F f) {
   switch (m) {
@@ -902,13 +1316,14 @@ int dispatch_m(int m, F f) {
     case 11: return f.template run<11, T>();
     case 12: return f.template run<12, T>();
     default:
-      if (m > kMaxUnrolledM && m <= kMaxM) return f.template run_large<T>(m);
+      if (m > kMaxUnrolledM && m <= kMaxWarpM) return f.template run_large<T>(m);
+      if (m > kMaxWarpM) return f.template run_cta<T>(m);
       return -1;
   }
 }
 
 struct InverseLaunch {
-  const void* s; void* out; int64_t n; cudaStream_t stream;
+  const void* s; void* out; int64_t n; void* workspace; cudaStream_t stream;
   template <int M, typename T> int run() const {
     launch_inverse<M, T>(s, out, n, stream);
     return static_cast<int>(cudaGetLastError());
@@ -916,10 +1331,13 @@ struct InverseLaunch {
   template <typename T> int run_large(int m) const {
     return launch_inverse_large<T>(s, out, n, m, stream);
   }
+  template <typename T> int run_cta(int m) const {
+    return launch_inverse_cta<T>(s, out, n, m, workspace, stream);
+  }
 };
 
 struct InverseFactorLaunch {
-  const void* s; void* inv; void* chol; int64_t n; cudaStream_t stream;
+  const void* s; void* inv; void* chol; int64_t n; void* workspace; cudaStream_t stream;
   template <int M, typename T> int run() const {
     launch_inverse_factor<M, T>(s, inv, chol, n, stream);
     return static_cast<int>(cudaGetLastError());
@@ -927,10 +1345,14 @@ struct InverseFactorLaunch {
   template <typename T> int run_large(int m) const {
     return launch_inverse_factor_large<T>(s, inv, chol, n, m, stream);
   }
+  template <typename T> int run_cta(int m) const {
+    return launch_inverse_factor_cta<T>(s, inv, chol, n, m, workspace, stream);
+  }
 };
 
 struct TraceLaunch {
-  const void* s; const void* g; void* out; int64_t outer; int64_t inner; cudaStream_t stream;
+  const void* s; const void* g; void* out; int64_t outer; int64_t inner; void* workspace;
+  cudaStream_t stream;
   template <int M, typename T> int run() const {
     launch_trace<M, T>(s, g, out, outer, inner, stream);
     return static_cast<int>(cudaGetLastError());
@@ -938,19 +1360,29 @@ struct TraceLaunch {
   template <typename T> int run_large(int m) const {
     return launch_trace_large<T>(s, g, out, outer, inner, m, stream);
   }
+  template <typename T> int run_cta(int m) const {
+    return launch_trace_cta<T>(s, g, out, outer, inner, m, workspace, stream);
+  }
 };
 
 struct EdgeLaunch {
   const void* s; const void* a_blk; const void* r; const void* action; const void* mask;
   int64_t mask_stride; void* wct; void* gain; int64_t n_missions; int n; int round_bf16;
-  cudaStream_t stream;
+  void* workspace; cudaStream_t stream;
+  // where the register route's shared slices of N columns do not fit a
+  // CTA, the CTA route takes the launch (the same order of operations)
   template <int M, typename T> int run() const {
-    return launch_edge<M, T>(s, a_blk, r, action, mask, mask_stride, wct, gain, n_missions, n,
-                             round_bf16, stream);
+    const int err = launch_edge<M, T>(s, a_blk, r, action, mask, mask_stride, wct, gain,
+                                      n_missions, n, round_bf16, stream);
+    return err == -1 ? run_cta<T>(M) : err;
   }
   template <typename T> int run_large(int m) const {
     return launch_edge_large<T>(s, a_blk, r, action, mask, mask_stride, wct, gain, n_missions,
                                 n, m, round_bf16, stream);
+  }
+  template <typename T> int run_cta(int m) const {
+    return launch_edge_cta<T>(s, a_blk, r, action, mask, mask_stride, wct, gain, n_missions, n,
+                              m, round_bf16, workspace, stream);
   }
 };
 
@@ -962,30 +1394,67 @@ int launch(int m, int dtype, F f) {
   return -1;
 }
 
+// bytes of global workspace the CTA route needs for a launch of `count`
+// matrices (blocks, missions) of size m, with n_cells columns for
+// edge_factor_gain: 0 where it runs in shared memory or another route
+// takes the launch
+template <typename T>
+long long workspace_bytes(int kind, int m, int n_cells, long long count) {
+  if (count <= 0 || m < 1) return 0;
+  if (kind == 3) {  // edge_factor_gain: the register route unless its slices do not fit
+    if (m <= kMaxUnrolledM) {
+      if (edge_register_bytes<T>(m, n_cells) <= kMaxSharedBytes) return 0;
+    } else if (m <= kMaxWarpM) {
+      return 0;
+    }
+    return cta_plan<T>(m, n_cells, count).global_bytes;
+  }
+  if (m <= kMaxWarpM) return 0;
+  return cta_plan<T>(m, 0, count).global_bytes;
+}
+
 }  // namespace
 
 extern "C" {
 
-int smallchol_max_m() { return kMaxM; }
+// kind: 0 spd_inverse, 1 spd_inverse_factor, 2 spd_trace_product (count =
+// outer * inner), 3 edge_factor_gain; -1 for an unknown dtype
+long long smallchol_workspace_bytes(int kind, int m, int n_cells, long long count, int dtype) {
+  if (dtype == 0) return workspace_bytes<float>(kind, m, n_cells, count);
+  if (dtype == 1) return workspace_bytes<double>(kind, m, n_cells, count);
+  return -1;
+}
 
+// sets the CTA route's shared-memory limit per CTA (bytes; past it the
+// workspace is global memory) and returns the previous one
+int smallchol_set_cta_shared_limit(int bytes) {
+  const int previous = g_cta_shared_limit;
+  g_cta_shared_limit = bytes < kMaxSharedBytes ? bytes : kMaxSharedBytes;
+  return previous;
+}
+
+// `workspace`: smallchol_workspace_bytes(...) bytes of global memory, or
+// nullptr where that is 0
 int smallchol_spd_inverse(const void* s, void* out, long long n, int m, int dtype,
-                          void* stream) {
+                          void* workspace, void* stream) {
   if (n <= 0) return 0;
-  return launch(m, dtype, InverseLaunch{s, out, n, static_cast<cudaStream_t>(stream)});
+  return launch(m, dtype,
+                InverseLaunch{s, out, n, workspace, static_cast<cudaStream_t>(stream)});
 }
 
 int smallchol_spd_inverse_factor(const void* s, void* inv, void* chol, long long n, int m,
-                                 int dtype, void* stream) {
+                                 int dtype, void* workspace, void* stream) {
   if (n <= 0) return 0;
-  return launch(m, dtype,
-                InverseFactorLaunch{s, inv, chol, n, static_cast<cudaStream_t>(stream)});
+  return launch(m, dtype, InverseFactorLaunch{s, inv, chol, n, workspace,
+                                              static_cast<cudaStream_t>(stream)});
 }
 
 int smallchol_spd_trace_product(const void* s, const void* g, void* out, long long outer,
-                                long long inner, int m, int dtype, void* stream) {
+                                long long inner, int m, int dtype, void* workspace,
+                                void* stream) {
   if (outer <= 0 || inner <= 0) return 0;
-  return launch(m, dtype,
-                TraceLaunch{s, g, out, outer, inner, static_cast<cudaStream_t>(stream)});
+  return launch(m, dtype, TraceLaunch{s, g, out, outer, inner, workspace,
+                                      static_cast<cudaStream_t>(stream)});
 }
 
 // s (n, M, M), a_blk (n, M, N), r (num_actions, M), action (n,) int64, mask
@@ -994,12 +1463,12 @@ int smallchol_spd_trace_product(const void* s, const void* g, void* out, long lo
 int smallchol_edge_factor_gain(const void* s, const void* a_blk, const void* r,
                                const void* action, const void* mask, long long mask_stride,
                                void* wct, void* gain, long long n, int m, int n_cells,
-                               int round_bf16, int dtype, void* stream) {
+                               int round_bf16, int dtype, void* workspace, void* stream) {
   if (n <= 0) return 0;
   if (n_cells <= 0) return -1;
   return launch(m, dtype,
                 EdgeLaunch{s, a_blk, r, action, mask, mask_stride, wct, gain, n, n_cells,
-                           round_bf16, static_cast<cudaStream_t>(stream)});
+                           round_bf16, workspace, static_cast<cudaStream_t>(stream)});
 }
 
 const char* smallchol_error_string(int err) {

@@ -3,8 +3,11 @@
 ``spd_inverse``, ``spd_inverse_factor``, ``spd_trace_product_packed`` and
 ``edge_factor_gain`` take CPU tensors to their plain PyTorch versions
 (ops/smallchol.py) and
-CUDA tensors to the kernels,
-with no fallback: a CUDA tensor the kernel cannot take raises.  Each
+CUDA tensors to the kernels at any M >= 1,
+with no fallback: a CUDA tensor the kernel cannot take raises.  Where the
+kernels' route for M >= 33 needs more workspace than a CTA's shared memory
+holds, the wrapper allocates it with ``torch.empty`` on the caller's device
+(the caching allocator's, on the current stream).  Each
 carries a plain integer ``launches`` that it increments where it launches
 its kernel and nowhere else, so a run can show that its path went through
 the kernels.
@@ -16,6 +19,7 @@ name, so an edited source is rebuilt), and loaded with ``ctypes``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -43,8 +47,8 @@ NVCC_FLAGS = (
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 
 _lib: Optional[ctypes.CDLL] = None
-#: the kernels' largest M, read from the library when it is loaded
-_max_m = 0
+#: the library's kernel kinds, for ``smallchol_workspace_bytes``
+_INVERSE, _INVERSE_FACTOR, _TRACE, _EDGE = range(4)
 #: seconds the last build took (0.0 when a built library was reused)
 build_seconds = 0.0
 
@@ -89,9 +93,9 @@ def build() -> pathlib.Path:
 
 
 def _load() -> ctypes.CDLL:
-    """Build if needed, load and bind the library; the handle and ``max_m``
-    are kept, so the wrappers' hot path is one global read."""
-    global _lib, _max_m
+    """Build if needed, load and bind the library; the handle is kept, so
+    the wrappers' hot path is one global read."""
+    global _lib
     major, minor = torch.cuda.get_device_capability()
     if (major, minor) != (9, 0):
         raise RuntimeError(
@@ -99,19 +103,21 @@ def _load() -> ctypes.CDLL:
         )
     lib = ctypes.CDLL(str(build()))
     vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.smallchol_spd_inverse.argtypes = [vp, vp, ll, i, i, vp]
+    lib.smallchol_spd_inverse.argtypes = [vp, vp, ll, i, i, vp, vp]
     lib.smallchol_spd_inverse.restype = i
-    lib.smallchol_spd_inverse_factor.argtypes = [vp, vp, vp, ll, i, i, vp]
+    lib.smallchol_spd_inverse_factor.argtypes = [vp, vp, vp, ll, i, i, vp, vp]
     lib.smallchol_spd_inverse_factor.restype = i
-    lib.smallchol_spd_trace_product.argtypes = [vp, vp, vp, ll, ll, i, i, vp]
+    lib.smallchol_spd_trace_product.argtypes = [vp, vp, vp, ll, ll, i, i, vp, vp]
     lib.smallchol_spd_trace_product.restype = i
-    lib.smallchol_edge_factor_gain.argtypes = [vp, vp, vp, vp, vp, ll, vp, vp, ll, i, i, i, i, vp]
+    lib.smallchol_edge_factor_gain.argtypes = [
+        vp, vp, vp, vp, vp, ll, vp, vp, ll, i, i, i, i, vp, vp]
     lib.smallchol_edge_factor_gain.restype = i
-    lib.smallchol_max_m.argtypes = []
-    lib.smallchol_max_m.restype = i
+    lib.smallchol_workspace_bytes.argtypes = [i, i, i, ll, i]
+    lib.smallchol_workspace_bytes.restype = ll
+    lib.smallchol_set_cta_shared_limit.argtypes = [i]
+    lib.smallchol_set_cta_shared_limit.restype = i
     lib.smallchol_error_string.argtypes = [i]
     lib.smallchol_error_string.restype = ctypes.c_char_p
-    _max_m = lib.smallchol_max_m()
     _lib = lib  # last: a concurrent first call at worst loads the file twice
     return lib
 
@@ -132,14 +138,42 @@ def _check(name: str, S: torch.Tensor, G: Optional[torch.Tensor] = None) -> int:
 
 
 def _check_m(name: str, M: int) -> None:
-    if not 1 <= M <= _max_m:
-        raise ValueError(f"{name}: M = {M} is outside 1..{_max_m}")
+    if M < 1:
+        raise ValueError(f"{name}: M = {M}, expected M >= 1")
+
+
+def _workspace(lib, kind: int, M: int, n_cells: int, count: int, code: int,
+               device: torch.device) -> Optional[torch.Tensor]:
+    """The global-memory workspace of a launch of the M >= 33 route whose
+    workspace does not fit a CTA's shared memory, else None."""
+    nbytes = lib.smallchol_workspace_bytes(kind, M, n_cells, count, code)
+    return torch.empty(nbytes, dtype=torch.uint8, device=device) if nbytes > 0 else None
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+_LIBRARY_CODES = {-1: "unsupported M, dtype or size", -2: "workspace missing"}
 
 
 def _raise_on(name: str, err: int) -> None:
     if err != 0:
-        msg = _lib.smallchol_error_string(err).decode() if err > 0 else "unsupported"
+        msg = _lib.smallchol_error_string(err).decode() if err > 0 else _LIBRARY_CODES[err]
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
+
+
+@contextlib.contextmanager
+def cta_workspace_in_global_memory():
+    """Within the block, the M >= 33 route keeps every workspace in global
+    memory, as it does where a CTA's shared memory cannot hold it: the card
+    tests drive that path with M's whose workspace would fit."""
+    lib = _lib or _load()
+    previous = lib.smallchol_set_cta_shared_limit(0)
+    try:
+        yield
+    finally:
+        lib.smallchol_set_cta_shared_limit(previous)
 
 
 def spd_inverse(S: torch.Tensor) -> torch.Tensor:
@@ -155,8 +189,10 @@ def spd_inverse(S: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(S)
     n = S.numel() // (M * M)
     if n:
+        ws = _workspace(lib, _INVERSE, M, 0, n, code, S.device)
         err = lib.smallchol_spd_inverse(
-            S.data_ptr(), out.data_ptr(), n, M, code, torch.cuda.current_stream().cuda_stream
+            S.data_ptr(), out.data_ptr(), n, M, code, _ptr(ws),
+            torch.cuda.current_stream().cuda_stream,
         )
         _raise_on("spd_inverse", err)
         spd_inverse.launches += 1
@@ -180,8 +216,9 @@ def spd_inverse_factor(S: torch.Tensor) -> tuple:
     inv, chol = torch.empty_like(S), torch.empty_like(S)
     n = S.numel() // (M * M)
     if n:
+        ws = _workspace(lib, _INVERSE_FACTOR, M, 0, n, code, S.device)
         err = lib.smallchol_spd_inverse_factor(
-            S.data_ptr(), inv.data_ptr(), chol.data_ptr(), n, M, code,
+            S.data_ptr(), inv.data_ptr(), chol.data_ptr(), n, M, code, _ptr(ws),
             torch.cuda.current_stream().cuda_stream,
         )
         _raise_on("spd_inverse_factor", err)
@@ -207,8 +244,9 @@ def spd_trace_product_packed(S: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
     _check_m("spd_trace_product", M)
     out = torch.empty((outer, inner), dtype=S.dtype, device=S.device)
     if out.numel():
+        ws = _workspace(lib, _TRACE, M, 0, outer * inner, code, S.device)
         err = lib.smallchol_spd_trace_product(
-            S.data_ptr(), G.data_ptr(), out.data_ptr(), outer, inner, M, code,
+            S.data_ptr(), G.data_ptr(), out.data_ptr(), outer, inner, M, code, _ptr(ws),
             torch.cuda.current_stream().cuda_stream,
         )
         _raise_on("spd_trace_product", err)
@@ -263,10 +301,11 @@ def edge_factor_gain(
     gain = torch.empty((B,), dtype=A.dtype, device=A.device)
     if B:
         mask_stride = 0 if diag_mask is None or diag_mask.ndim == 1 else N
+        ws = _workspace(lib, _EDGE, M, N, B, code, A.device)
         err = lib.smallchol_edge_factor_gain(
             S_raw.data_ptr(), A.data_ptr(), R_table.data_ptr(), a.data_ptr(),
-            None if diag_mask is None else diag_mask.data_ptr(), mask_stride,
-            WcT.data_ptr(), gain.data_ptr(), B, M, N, int(round_bf16), code,
+            _ptr(diag_mask), mask_stride,
+            WcT.data_ptr(), gain.data_ptr(), B, M, N, int(round_bf16), code, _ptr(ws),
             torch.cuda.current_stream().cuda_stream,
         )
         _raise_on(name, err)

@@ -10,9 +10,11 @@ overflow, its inf and NaN entries must sit where the plain version's do.
 ``edge_factor_gain`` (the search's whole edge update after its two GEMMs)
 is held to the same on clamped pivots, in both dtypes, with the bf16
 round trip, for every column chunk and every mission of a batch.  Each
-kernel is held at every M of its register-resident route (1..12) and at
-M = 13, 16, 25 and 32 of its large-M route (one warp per matrix); M = 33
-raises.
+kernel is held at every M of its register-resident route (1..12), at
+M = 13, 16, 25 and 32 of its warp route (one warp per matrix) and at M =
+33, 48, 64, 81 and 121 of its CTA route (one CTA per matrix), there with
+its workspace in shared memory and, forced, in global memory (where a
+larger M puts it).  Any M >= 1 is taken; M = 0 raises.
 
 These tests need an NVIDIA Hopper card and the CUDA toolkit; elsewhere
 they skip.  They import no JAX, so they run where JAX is not installed:
@@ -154,7 +156,7 @@ def test_inverse_factor_tiles_cover_every_matrix(cuda, B, dtype):
     inv = torch.full_like(S, float("nan"))
     U = torch.full_like(S, float("nan"))
     err = kernels._lib.smallchol_spd_inverse_factor(
-        S.data_ptr(), inv.data_ptr(), U.data_ptr(), B, 9, kernels._DTYPE_CODES[dtype],
+        S.data_ptr(), inv.data_ptr(), U.data_ptr(), B, 9, kernels._DTYPE_CODES[dtype], None,
         torch.cuda.current_stream().cuda_stream,
     )
     torch.cuda.synchronize()
@@ -228,7 +230,7 @@ def test_edge_factor_gain_covers_every_mission(cuda, B, dtype):
     gain = torch.full((B,), float("nan"), dtype=dtype, device=cuda)
     err = kernels._lib.smallchol_edge_factor_gain(
         S_raw.data_ptr(), A.data_ptr(), R.data_ptr(), a.data_ptr(), mask.data_ptr(), 100,
-        WcT.data_ptr(), gain.data_ptr(), B, 9, 100, 0, kernels._DTYPE_CODES[dtype],
+        WcT.data_ptr(), gain.data_ptr(), B, 9, 100, 0, kernels._DTYPE_CODES[dtype], None,
         torch.cuda.current_stream().cuda_stream,
     )
     torch.cuda.synchronize()
@@ -313,14 +315,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     S = random_spd(4, 9, torch.float32, seed=3).to(cuda)
     with pytest.raises(ValueError):
         kernels.spd_inverse(S.mT)  # not contiguous
-    with pytest.raises(ValueError):
-        kernels.spd_inverse(random_spd(2, 33, torch.float32, seed=4).to(cuda))
     with pytest.raises(TypeError):
         kernels.spd_inverse(S.half())
     with pytest.raises(ValueError):
         kernels.spd_inverse_factor(S.mT)  # not contiguous
-    with pytest.raises(ValueError):
-        kernels.spd_inverse_factor(random_spd(2, 33, torch.float32, seed=4).to(cuda))
     with pytest.raises(TypeError):
         kernels.spd_inverse_factor(S.half())
     Sp = packed(S, 1, 4)
@@ -343,12 +341,6 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         kernels.edge_factor_gain(S_raw, A, R, a.int(), mask)
     with pytest.raises(ValueError):
         kernels.edge_factor_gain(S_raw, A, R, a.cpu(), mask)
-    S33, A33, R33, a33, _ = (t.to(cuda) for t in edge_inputs(2, 33, 20, torch.float32, seed=4))
-    with pytest.raises(ValueError):
-        kernels.edge_factor_gain(S33, A33, R33, a33)  # M = 33
-    S33p = packed(random_spd(2, 33, torch.float32, seed=4).to(cuda), 1, 2)
-    with pytest.raises(ValueError):
-        kernels.spd_trace_product_packed(S33p, S33p)  # M = 33
     cfg = load_config(str(CONFIG_DIR / "example.yaml"))
     from ipp_rl_tpu_torch.planners.zero.mcts import ZeroMCTS
 
@@ -357,6 +349,148 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     P = torch.eye(cfg.environment.num_cells, device=cuda)[None]
     with pytest.raises(ValueError):  # an edge dtype the kernel does not round to
         mcts.edge_update(P, torch.zeros((1,), dtype=torch.long, device=cuda), None)
+
+
+def test_wrappers_take_m33_and_refuse_m0(cuda):
+    """M = 33, the CTA route's first M, is taken by every wrapper (the warp
+    route stopped at 32); M = 0 and integer dtypes still raise."""
+    S = random_spd(2, 33, torch.float32, seed=4).to(cuda)
+    assert torch.equal(kernels.spd_inverse(S), smallchol.spd_inverse(S))
+    for got, want in zip(kernels.spd_inverse_factor(S), smallchol.spd_inverse_factor(S)):
+        assert torch.equal(got, want)
+    Sp = packed(S, 1, 2)
+    assert torch.equal(kernels.spd_trace_product_packed(Sp, Sp),
+                       smallchol.spd_trace_product_packed(Sp, Sp))
+    S33, A33, R33, a33, _ = (t.to(cuda) for t in edge_inputs(2, 33, 20, torch.float32, seed=4))
+    for got, want in zip(kernels.edge_factor_gain(S33, A33, R33, a33),
+                         smallchol.edge_factor_gain(S33, A33, R33, a33)):
+        assert torch.equal(got, want)
+    empty = torch.zeros((2, 0, 0), device=cuda)
+    with pytest.raises(ValueError):
+        kernels.spd_inverse(empty)  # M = 0
+    with pytest.raises(ValueError):
+        kernels.spd_inverse_factor(empty)
+    with pytest.raises(ValueError):
+        kernels.spd_trace_product_packed(torch.zeros((1, 0, 2), device=cuda),
+                                         torch.zeros((1, 0, 2), device=cuda))
+    with pytest.raises(ValueError):
+        kernels.edge_factor_gain(torch.zeros((2, 0, 0), device=cuda),
+                                 torch.zeros((2, 0, 5), device=cuda),
+                                 torch.zeros((3, 0), device=cuda), a33)
+    with pytest.raises(TypeError):
+        kernels.spd_inverse(S.int())
+    with pytest.raises(TypeError):
+        kernels.spd_inverse_factor(S.long())
+    with pytest.raises(TypeError):
+        kernels.edge_factor_gain(S33.int(), A33.int(), R33.int(), a33)
+
+
+#: the CTA route's tested M: the 1 m grid's lattice (81) and continuous (121) M among them
+CTA_M = [33, 48, 64, 81, 121]
+CTA_KERNELS = ["spd_inverse", "spd_inverse_factor", "spd_trace_product", "edge_factor_gain"]
+
+
+def kernel_and_plain(name, M, dtype, cuda, seed):
+    """(the kernel's call, the plain version's outputs) on inputs with one
+    clamped pivot: (9, M, M) matrices, (3, T, 3) packed blocks, or 5
+    missions of N = 1600 columns with a per-mission mask."""
+    if name in ("spd_inverse", "spd_inverse_factor"):
+        S = random_spd(9, M, dtype, seed=seed)
+        S[4, -1, -1] -= 2.0 * S[4].diagonal().sum()
+        S = S.to(cuda)
+        return (lambda: getattr(kernels, name)(S)), getattr(smallchol, name)(S)
+    if name == "spd_trace_product":
+        S = random_spd(9, M, dtype, seed=seed)
+        S[4, -1, -1] -= 2.0 * S[4].diagonal().sum()
+        Sp = packed(S.to(cuda), 3, 3)
+        Gp = packed(random_spd(9, M, dtype, seed=seed + 1).to(cuda), 3, 3)
+        return (lambda: kernels.spd_trace_product_packed(Sp, Gp)), \
+            smallchol.spd_trace_product_packed(Sp, Gp)
+    args = [t.to(cuda) for t in edge_inputs(5, M, 1600, dtype, seed=seed, clamp=True)]
+    return (lambda: kernels.edge_factor_gain(*args)), smallchol.edge_factor_gain(*args)
+
+
+@pytest.mark.parametrize("name", CTA_KERNELS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("M", CTA_M)
+def test_cta_route_is_bitwise_plain(cuda, M, dtype, name):
+    """Each kernel at the CTA route's M, its workspace in shared memory and
+    then in global memory, against one plain result: bitwise, inf and NaN
+    where the plain version has them (the clamped pivot)."""
+    call, want = kernel_and_plain(name, M, dtype, cuda, seed=M + CTA_KERNELS.index(name))
+    want = want if isinstance(want, tuple) else (want,)
+    for route in ("shared", "global"):
+        if route == "shared":
+            got = call()
+        else:
+            with kernels.cta_workspace_in_global_memory():
+                got = call()
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        for g, w in zip(got, want):
+            assert same(g, w), (route, name)
+
+
+@pytest.mark.parametrize("N", [1, 31, 33, 1600])
+@pytest.mark.parametrize("dtype,round_bf16", EDGE_DTYPES, ids=EDGE_IDS)
+def test_cta_edge_factor_gain_columns_masks_and_rounding(cuda, N, dtype, round_bf16):
+    """M = 33: fewer columns than a warp, one past a warp, the 1 m grid's
+    1600; no mask, a shared (N,) mask and a per-mission (B, N) mask."""
+    S_raw, A, R, a, mask = (t.to(cuda) for t in edge_inputs(6, 33, N, dtype, seed=N))
+    for m in (None, mask[0].contiguous(), mask):
+        want = smallchol.edge_factor_gain(S_raw, A, R, a, m, round_bf16)
+        for glob in (False, True):
+            if glob:
+                with kernels.cta_workspace_in_global_memory():
+                    got = kernels.edge_factor_gain(S_raw, A, R, a, m, round_bf16)
+            else:
+                got = kernels.edge_factor_gain(S_raw, A, R, a, m, round_bf16)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B", [1, 5, 600])
+def test_cta_route_covers_every_matrix(cuda, B, dtype):
+    """The CTA route (M = 33) writes every matrix, block and mission of a
+    batch, in shared memory (one CTA each) and in global memory (264 CTAs
+    striding over the batch: B = 600 takes three rounds): the outputs'
+    memory is first filled with NaN (freed at once, so the outputs reuse it)."""
+    M = 33
+    S = random_spd(B, M, dtype, seed=B).to(cuda)
+    Sp, Gp = packed(S, 1, B), packed(random_spd(B, M, dtype, seed=B + 1).to(cuda), 1, B)
+    edge = [t.to(cuda) for t in edge_inputs(B, M, 40, dtype, seed=B)]
+    want = (smallchol.spd_inverse(S), smallchol.spd_inverse_factor(S),
+            smallchol.spd_trace_product_packed(Sp, Gp), smallchol.edge_factor_gain(*edge))
+
+    def run():
+        out = []
+        for fn in (lambda: (kernels.spd_inverse(S),), lambda: kernels.spd_inverse_factor(S),
+                   lambda: (kernels.spd_trace_product_packed(Sp, Gp),),
+                   lambda: kernels.edge_factor_gain(*edge)):
+            torch.full((4 * B * M * 64,), float("nan"), dtype=dtype, device=cuda)
+            out.append(fn())
+        return out
+
+    for glob in (False, True):
+        if glob:
+            with kernels.cta_workspace_in_global_memory():
+                got = run()
+        else:
+            got = run()
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            for gi, wi in zip(g, w if isinstance(w, tuple) else (w,)):
+                assert bool(torch.isfinite(gi).all()) and torch.equal(gi, wi)
+
+
+def test_edge_factor_gain_past_the_register_route_takes_the_cta_route(cuda):
+    """M = 9 with N = 1700 columns: the register route's shared slices of
+    four missions pass a CTA's shared memory, so the CTA route takes the
+    launch, bitwise as well."""
+    args = [t.to(cuda) for t in edge_inputs(7, 9, 1700, torch.float32, seed=17)]
+    got = kernels.edge_factor_gain(*args)
+    want = smallchol.edge_factor_gain(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_greedy_slice_on_card_matches_cpu(cuda):
