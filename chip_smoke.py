@@ -231,7 +231,10 @@ Phases, each of which fails the run on a failed check (none is caught):
    121), ``spd_trace_product`` on the 1 m sweep's two launches at B = 16,
    ``spd_inverse_factor`` (1024, 81, 81), ``edge_factor_gain`` (192, 121,
    1600) with a per-member mask; and at M = ``CTA_M_CHECKED`` clamped
-   pivots and float64 with the workspace in global memory.
+   pivots and float64 with the workspace in global memory, at M =
+   ``CTA_M_RAGGED`` a trace-product CTA with empty slots and blocks across
+   two o, and ``edge_factor_gain`` over a ragged column tile with a shared
+   mask and the bf16 round trip.
 
 Float32 products run in full float32: TF32 is switched off for matmuls
 and cuDNN.  The last stdout line is ``{"ok": true, "device": {...}}``;
@@ -388,6 +391,8 @@ FINE_1M_ALLOWANCE_S = 150
 # phase 2: every M >= 33 runs the same code, and a plain version's time
 # grows as M^3 (~20 s a call at M = 121 on the card)
 CTA_M_CHECKED = 48
+# and its ragged runs of blocks and column tiles
+CTA_M_RAGGED = 33
 # the kernels repeat their plain versions' operations in the same order,
 # one rounding each: they are held to bitwise equality; the metric curves
 # of the agreement phase to this relative tolerance
@@ -1182,11 +1187,12 @@ def cta_m_rows(gen: torch.Generator) -> dict:
     fitness forms it (B·λ = 16 x 12 members, H and R of random waypoints
     from the continuous model, a per-member mask).  Then, at M =
     CTA_M_CHECKED, clamped pivots (inf and NaN where the plain versions
-    have them) and float64 with the workspace in global memory.  Returns per
-    kernel name its rows and checks."""
+    have them) and float64 with the workspace in global memory; at M =
+    CTA_M_RAGGED, ragged runs of blocks and a ragged column tile.  Returns
+    per kernel name its rows and checks."""
     log(f"  CTA route: M = 81 and 121 on the {FINE_1M_GRID['x_dim']}x{FINE_1M_GRID['y_dim']} "
         f"grid at resolution {FINE_1M_GRID['resolution']}; clamped and float64 (global "
-        f"workspace) at M = {CTA_M_CHECKED}")
+        f"workspace) at M = {CTA_M_CHECKED}; ragged at M = {CTA_M_RAGGED}")
     out = {name: {"rows": [], "checks": []} for name in
            ("spd_inverse", "spd_trace_product", "spd_inverse_factor", "edge_factor_gain")}
     world, built_s = fine_1m_world()
@@ -1294,6 +1300,20 @@ def cta_m_rows(gen: torch.Generator) -> dict:
     record("spd_inverse_factor", "float64 global workspace", got[1], want[1])
     record("spd_trace_product", "float64 global workspace", [got[2]], [want[2]])
     record("edge_factor_gain", "float64 global workspace", got[3], want[3])
+    # ragged: a trace-product CTA with one block for its two slots, and with
+    # blocks across two o; Uᵀ·A with 37 of a 64-column tile, a shared (N,) mask and
+    # the bf16 round trip (M = CTA_M_RAGGED: a plain call is ~0.5 s there)
+    m = CTA_M_RAGGED
+    for outer, inner in ((1, 1), (3, 11)):
+        Sp = packed(make_indefinite(random_spd(outer * inner, gen, m)), outer, inner)
+        Gp = packed(random_spd(outer * inner, gen, m), outer, inner)
+        record("spd_trace_product", f"ragged ({outer}, T, {inner})",
+               [kernels.spd_trace_product_packed(Sp, Gp)],
+               [smallchol.spd_trace_product_packed(Sp, Gp)])
+    e = random_edge_inputs(5, m, 37, torch.float32, gen)
+    e = (*e[:4], e[4][0].contiguous(), True)
+    record("edge_factor_gain", "ragged (5, M, 37), (N,) mask, bf16", kernels.edge_factor_gain(*e),
+           smallchol.edge_factor_gain(*e))
     for v in out.values():
         v["max_abs_err"] = max([r["max_abs_err"] for r in v["rows"]]
                                + [e["max_abs_err"] for c in v["checks"] for e in c.values()

@@ -136,32 +136,70 @@
 // A simple design, not a fast one: at M = 25 a warp does ~M^2 dependent
 // steps with most lanes idle.
 //
-// The CTA route (M >= 33, any M; the same four entry points, and
-// edge_factor_gain at M <= 12 where the register route's shared slices of N
-// columns do not fit a CTA): the warp route lifted to a CTA.  Each matrix
-// (each packed block, each mission) is one CTA's, of ceil(M/32) warps (at
-// most 1024 threads; edge_factor_gain at least 256), thread i owning row i
-// (rows i, i + 1024, ... past 1024):
-//   Cholesky, column by column (cta_cholesky), in place on the staged lower
-//     triangle: each thread forms s(i,j) - sum_k L[i][k] L[j][k] (k in
-//     order); row j's sum is the pivot, passed on through the workspace
-//     between two __syncthreads();
-//   forward substitution (cta_invert_lower): thread j runs down column j;
-//   the entries of S^-1 (each a sum over k in order) spread over the CTA;
-//   the second Cholesky (spd_inverse_factor, edge_factor_gain) as the first.
-// The workspace is two packed triangles, X and Y (M(M+1) elements: 26.5 KB
-// at M = 81 and 59 KB at M = 121 in float32, 118 KB at M = 121 in
-// float64), the pivot, and for edge_factor_gain the N masked squares.  It
-// lives in shared memory up to kMaxSharedBytes per CTA (every M <= 169 in
-// float64), else in global memory (L2-resident): the same code through
-// another pointer, a caller-allocated slice per CTA for kWorkspaceCtas CTAs
-// that stride over the batch (smallchol_workspace_bytes says how much).
-// The trace product's M(M+1)/2 terms go to X and thread 0 adds them up in
-// order.  edge_factor_gain forms U^T A with the threads on consecutive
-// columns of A (global memory), kWctRows rows of WcT per pass over a
-// column, each row's sum in _small_mm order; warp 0 then walks the masked
-// squares in the warp route's lane order and xor tree, so a CTA of any
-// width gives the warp route's gain bit for bit.
+// The CTA route (M >= 33, up to kMaxCtaM; the same four entry points, and
+// edge_factor_gain at M <= 12 where the register route's shared slices of
+// N columns do not fit a CTA).  Each matrix (each mission, each of K1's and
+// K3's matrices) is one CTA's, of cta_threads(M) threads; the trace
+// product's CTA takes `slots` blocks at once, one group of cta_threads(M)
+// threads and one named barrier each.  Its factorisations are right-looking
+// wavefronts, each entry's operations in the plain versions' order:
+//   Cholesky (cta_cholesky): before step k the columns 0..k of L are final
+//     and column k is published in a shared buffer; step k scales column k,
+//     subtracts term k, L[i][k] L[j][k], from every trailing entry and
+//     publishes column k + 1 with its pivot (clamp, sqrt, 1/d); one barrier
+//     per column;
+//   forward substitution (cta_invert_lower), row by row: step k adds term
+//     k to every entry (i, c), i > k >= c, and finishes and publishes row
+//     k + 1; one barrier per row;
+//   the entries of S^-1 (cta_inverse_entries), 4 x 4 tiles per thread,
+//     sums in registers, 8 shared loads per 16 products.
+// Up to M = kMaxRegisterM (176) the two wavefronts keep the matrix in
+// registers, one 4 x 4 tile per thread (cta_threads(M): 256 at M = 81, 512
+// at M = 121), and a step reads the published column (or row) as two
+// 16-byte loads per tile; past it the same steps run on the packed triangle
+// in shared memory (cta_cholesky_shared, cta_invert_lower_shared), one
+// thread per row.  The dependent chain per factorisation is M barrier
+// steps, not the ~M^2 / 2 steps of a left-looking column walk.
+// The workspace is two column buffers and two packed triangles, X and Y
+// ((2M + M(M + 1)) elements: 27 KB at M = 81 and 60 KB at M = 121 in
+// float32, 118 KB at M = 121 in float64).  It lives in shared memory up to
+// kMaxSharedBytes per CTA (every M <= 169 in float64), else in global
+// memory (L2-resident): the same code through another pointer, a
+// caller-allocated slice per CTA for kWorkspaceCtas CTAs that stride over
+// the batch (smallchol_workspace_bytes says how much; one slot per CTA
+// there).
+//   spd_trace_product: slots = the largest power of two <= kTraceSlots (2)
+//     whose workspaces fit: at M = 81 in float32 two groups of 256 threads
+//     (54 KB), two CTAs resident per SM (64 registers a thread), four
+//     blocks in flight.  The slots' blocks are consecutive in `inner`, so
+//     staging reads entry e of both blocks from one 32-byte sector (S, then
+//     G in L's place once the factors are done); a ragged tail of blocks is
+//     masked by index.  Each slot writes its terms (2 - d_ij) S^-1[i,j]
+//     G[i,j] in packed order over G, and thread s then adds slot s's terms
+//     in packed order, the plain version's, so the slots' serial sums run
+//     at once.  More slots (4, 8) read whole sectors but run slower: every
+//     slot waits at the CTA's barriers for the slowest, and the register
+//     tiles hold a CTA of 1024 threads to one per SM.
+//   edge_factor_gain: three device kernels on one stream.  (1) One CTA per
+//     mission factors S = 0.5 (S_raw + S_raw^T) + diag(R[a]) into U =
+//     chol(S^-1) and writes it dense (rows padded to the product's pass,
+//     zeros above the diagonal) to the caller's global workspace (11 MB at
+//     (192, 121), L2-resident).  (2) WcT = U^T A (edge_product_kernel): a CTA
+//     of 16 x 16 threads per (mission, 64 columns of A), TM x 4 outputs per
+//     thread in registers (TM = 8 at M >= 33: passes of 128 rows; 2 below),
+//     k-chunks of 16 rows of U and A staged by cp.async, double-buffered;
+//     every output summed over k = 0..M-1 in order, U's zero terms kept, as
+//     _small_mm;
+//     then the bf16 round trip, coalesced stores along N, each column's
+//     squares added over m in order by one thread from a shared tile, the
+//     mask; the masked squares to a (B, N) scratch.  (3) One warp per
+//     mission adds them in the warp route's lane order and xor tree.
+//   No tensor cores: float32 runs in full float32 throughout the port (TF32
+//   off), wgmma takes no full-float32 input, float64 mma fuses the multiply
+//   and the add (which -fmad=false rules out), and every sum keeps the plain
+//   versions' order.  So the products run on the FP32/FP64 pipes, one
+//   multiply and one add per term: an operations bound taken at the 67
+//   TFLOP/s that counts an FMA as two can be reached to about half at most.
 //
 // Numerics: the operations and their order are those of the plain PyTorch
 // versions (ops/smallchol.py), and the library is built with -fmad=false
@@ -171,8 +209,8 @@
 //
 // Interface: plain C, loaded with ctypes by ops/kernels.py; pointers and
 // the stream arrive as void*.  Each launcher returns 0, a cudaError_t from
-// cudaGetLastError() after the launch, -1 for an unsupported M (below 1),
-// dtype or size, or -2 for a missing global workspace (nothing launched).
+// cudaGetLastError() after the launch, -1 for an unsupported M (below 1 or
+// past kMaxCtaM), dtype or size, or -2 for a missing global workspace (nothing launched).
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -814,9 +852,24 @@ int allow_shared(K kernel, size_t bytes) {
 
 // ---------------------------------------------------------------- CTA route (M >= 33)
 
+// the CTA route takes M up to this, so that tri(M) and every packed index
+// fit a 32-bit int (a matrix there is already 8.6 GB in float64)
+constexpr int kMaxCtaM = 46340;
+
 // position of row i of a packed lower triangle: entry (i, j) lies at tri(i) + j
 __host__ __device__ __forceinline__ int64_t tri(int i) {
   return static_cast<int64_t>(i) * (i + 1) / 2;
+}
+
+__device__ __forceinline__ int tri32(int i) { return i * (i + 1) / 2; }
+
+// the row i of packed entry q, tri(i) <= q < tri(i + 1): a float estimate,
+// then corrected
+__device__ __forceinline__ int packed_row(int q) {
+  int i = __float2int_rz((__fsqrt_rn(8.0f * static_cast<float>(q) + 1.0f) - 1.0f) * 0.5f);
+  while (tri(i + 1) <= q) ++i;
+  while (tri(i) > q) --i;
+  return i;
 }
 
 // calls f(e, i, j) for the packed entries e = threadIdx.x, + blockDim.x, ...
@@ -834,81 +887,467 @@ __device__ __forceinline__ void for_packed_entries(int m, F f) {
   }
 }
 
-// In place, across the CTA: on entry L holds the lower triangle of the SPD
-// matrix (packed), on exit its Cholesky factor.  Column by column: each
-// thread owns the rows i = threadIdx.x, + blockDim.x, ... and forms
-// s(i, j) - sum_k L[i][k] L[j][k] (k in order, as `cholesky`); row j's sum
-// is the pivot, passed on through `pivot` (one element of the workspace).
-template <typename T>
-__device__ __forceinline__ void cta_cholesky(T* L, int m, T* pivot) {
-  for (int j = 0; j < m; ++j) {
-    const T* Lj = L + tri(j);
-    for (int i = threadIdx.x; i < m; i += blockDim.x) {
-      if (i < j) continue;
-      T* Li = L + tri(i);
-      T acc = Li[j];
-      for (int k = 0; k < j; ++k) acc = acc - Li[k] * Lj[k];
-      if (i == j) {
-        *pivot = acc;
-      } else {
-        Li[j] = acc;
-      }
+// The threads that factor one matrix: `size` of them (a whole number of
+// warps), this thread's rank `tid` among them, and the barrier they share
+// (0: the whole CTA; 1 + slot for one slot of the trace product's CTA).
+struct Group {
+  int tid;
+  int size;
+  int bar;
+  __device__ __forceinline__ void sync() const {
+    if (bar == 0) {
+      __syncthreads();
+    } else {
+      asm volatile("bar.sync %0, %1;\n" ::"r"(bar), "r"(size) : "memory");
     }
-    __syncthreads();
-    const T d = sqrt(clamp_pivot(*pivot));
+  }
+};
+
+// In place, across the group: on entry X holds the lower triangle of the
+// SPD matrix (packed), on exit its Cholesky factor.  C holds two columns
+// (2m elements).  Right-looking: before step k the columns 0..k of L are
+// final and column k is also in C[k & 1].  In step k the group's first warp
+// subtracts term k from column k + 1, takes its pivot (clamp, sqrt, 1/d)
+// and scales the column (into X and C[(k + 1) & 1]), while every thread
+// subtracts term k, L[i][k] L[j][k], from the trailing entries (i, j),
+// k + 2 <= j <= i, spread over the group in packed order.  So each entry
+// sees s(i, j) - term 0 - term 1 - ... in the order of `cholesky`, then its
+// `* inv_d` (or the clamp and square root): one barrier per column, and a
+// dependent chain of ~m steps instead of the left-looking ~m^2 / 2.
+template <typename T>
+__device__ void cta_cholesky_shared(T* X, T* C, int m, const Group& g) {
+  if (g.tid < 32) {
+    const T d = sqrt(clamp_pivot(X[0]));
     const T inv_d = T(1) / d;
-    for (int i = threadIdx.x; i < m; i += blockDim.x) {
-      if (i == j) {
-        L[tri(j) + j] = d;
-      } else if (i > j) {
-        L[tri(i) + j] = L[tri(i) + j] * inv_d;
+    for (int i = 1 + g.tid; i < m; i += 32) {
+      T* x = X + tri32(i);
+      const T v = *x * inv_d;
+      *x = v;
+      C[i] = v;
+    }
+    __syncwarp();  // every lane has read X[0]
+    if (g.tid == 0) {
+      X[0] = d;
+      C[0] = d;
+    }
+  }
+  g.sync();
+  for (int k = 0; k + 1 < m; ++k) {
+    const T* c = C + (k & 1) * m;  // L[.][k]
+    const int j1 = k + 1;
+    if (g.tid < 32) {  // column k + 1: its last term, its pivot and its scaling
+      T* next = C + (j1 & 1) * m;
+      const T lk = c[j1];
+      T* xd = X + tri32(j1) + j1;
+      const T d = sqrt(clamp_pivot(*xd - lk * lk));
+      const T inv_d = T(1) / d;
+      for (int i = j1 + 1 + g.tid; i < m; i += 32) {
+        T* x = X + tri32(i) + j1;
+        const T v = (*x - c[i] * lk) * inv_d;
+        *x = v;
+        next[i] = v;
+      }
+      __syncwarp();  // every lane has read the pivot's entry
+      if (g.tid == 0) {
+        *xd = d;
+        next[j1] = d;
       }
     }
-    __syncthreads();
+    // term k of the trailing triangle, rows and columns k + 2 .. m - 1
+    const int base = k + 2;
+    const int cnt = base < m ? tri32(m - base) : 0;
+    if (g.tid < cnt) {
+      int r = packed_row(g.tid);
+      int rs = tri32(r);
+      for (int q = g.tid; q < cnt; q += g.size) {
+        while (q >= rs + r + 1) {
+          rs += r + 1;
+          ++r;
+        }
+        const int i = base + r, j = base + (q - rs);
+        T* x = X + tri32(i) + j;
+        *x = *x - c[i] * c[j];
+      }
+    }
+    g.sync();
   }
 }
 
-// Li = L^-1 (both packed) by forward substitution, the thread that owns
-// column c running down it in the order of `inverse_factor`
+// Li = L^-1 into Y (both packed; L in X), row by row: before step k row k
+// of Li is final; step k adds term k, L[i][k] Li[k][c], to every entry
+// (i, c), i > k >= c, the term c starting its sum (no 0 +), and finishes
+// row k + 1 (-acc / L[k+1][k+1], and 1 / L[k+1][k+1] on the diagonal).  So
+// each entry's sum runs over k = c, c + 1, ... in the order of
+// `inverse_factor`: one barrier per row.
 template <typename T>
-__device__ __forceinline__ void cta_invert_lower(const T* L, int m, T* Li) {
-  for (int c = threadIdx.x; c < m; c += blockDim.x) {
-    const T diag = T(1) / L[tri(c) + c];
-    Li[tri(c) + c] = diag;
-    for (int i = c + 1; i < m; ++i) {
-      const T* Lr = L + tri(i);
-      T acc = Lr[c] * diag;
-      int64_t p = tri(c + 1) + c;  // Li[k][c], k = c + 1
-      for (int k = c + 1; k < i; ++k) {
-        acc = acc + Lr[k] * Li[p];
-        p += k + 1;
+__device__ void cta_invert_lower_shared(const T* X, T* Y, int m, const Group& g) {
+  if (g.tid == 0) Y[0] = T(1) / X[0];
+  g.sync();
+  for (int k = 0; k + 1 < m; ++k) {
+    const int w = k + 1;          // the columns c = 0..k of rows k + 1 .. m - 1
+    const int cnt = (m - w) * w;  // entries (i, c), flat, row-major
+    const T* Yk = Y + tri32(k);
+    const T dn = X[tri32(w) + w];  // L[k + 1][k + 1]
+    if (g.tid == 0) Y[tri32(w) + w] = T(1) / dn;
+    if (g.tid < cnt) {
+      const int dr = g.size / w, dc = g.size - dr * w;
+      int r = g.tid / w, c = g.tid - r * w;
+      for (int q = g.tid; q < cnt; q += g.size) {
+        const int row = tri32(w + r);
+        const T t = X[row + k] * Yk[c];
+        T* y = Y + row + c;
+        T v = c == k ? t : *y + t;
+        if (r == 0) v = -v / dn;
+        *y = v;
+        r += dr;
+        c += dc;
+        if (c >= w) {
+          c -= w;
+          ++r;
+        }
       }
-      Li[tri(i) + c] = -acc / Lr[i];
     }
+    g.sync();
   }
-  __syncthreads();
 }
 
-// S^-1[i][j], i >= j, from the packed Li, in the order of `inverse_entry`
-template <typename T>
-__device__ __forceinline__ T cta_inverse_entry(const T* Li, int m, int i, int j) {
-  int64_t p = tri(i);
-  T acc = Li[p + i] * Li[p + j];
-  for (int k = i + 1; k < m; ++k) {
-    p += k;
-    acc = acc + Li[p + i] * Li[p + j];
+// N consecutive elements from shared memory: 16-byte loads where the run's
+// bytes allow (its start is then 16-byte aligned), else one by one
+template <typename T, int N>
+__device__ __forceinline__ void load_run(const T* p, T (&v)[N]) {
+  constexpr int bytes = N * static_cast<int>(sizeof(T));
+  if constexpr (bytes % 16 == 0) {
+#pragma unroll
+    for (int q = 0; q < bytes / 16; ++q) {
+      const float4 w = reinterpret_cast<const float4*>(p)[q];
+      memcpy(reinterpret_cast<char*>(v) + 16 * q, &w, 16);
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < N; ++q) v[q] = p[q];
   }
-  return acc;
+}
+
+// The register-tile forms (M <= kMaxRegisterM): the same wavefronts, each
+// thread keeping one kTile x kTile tile of the lower triangle in registers
+// for the whole factorisation, so that a step reads one published column
+// of L (or row of L^-1) per tile, as two 16-byte loads, and writes only the
+// next column or row.  A tile wholly inside a step's region takes a path
+// without per-entry tests, and the tiles are numbered so that those a
+// wavefront works on at step k lie in few runs of threads (fewer warps with
+// work).  The column and row buffers have a stride of M rounded up to 4, so
+// each tile's run of 4 values is one aligned vector.
+constexpr int kTile = 4;
+constexpr int kMaxRegisterM = 176;  // 44 tile rows: 990 tiles, one for each of <= 1024 threads
+constexpr int kCtaThreads = 1024;   // the CTA route's kernels' launch bound (64 registers a thread)
+
+__host__ __device__ constexpr int padded4(int m) { return (m + 3) / 4 * 4; }
+
+// this thread's tile: `valid`, and (i0, j0) its first entry
+struct Tile {
+  bool valid;
+  int i0;
+  int j0;
+};
+
+// the Cholesky's numbering: q = tid in the packed order of the reversed
+// triangle (q -> (r, c), tile (nt - 1 - c, nt - 1 - r)), so the tiles of
+// columns >= K, those it still works on at step 4K, are the first tri(nt - K)
+__device__ __forceinline__ Tile tile_by_trailing(int m, const Group& g) {
+  const int nt = (m + kTile - 1) / kTile;
+  Tile t;
+  t.valid = g.tid < nt * (nt + 1) / 2;
+  const int r = t.valid ? packed_row(g.tid) : 0;
+  t.i0 = (nt - 1 - (t.valid ? g.tid - tri32(r) : 0)) * kTile;
+  t.j0 = (nt - 1 - r) * kTile;
+  return t;
+}
+
+// the forward substitution's numbering: by tile columns from the left, each
+// column from the bottom up, so that the tiles it works on at step k (rows
+// below k, columns up to k + 1) lie in few runs
+__device__ __forceinline__ Tile tile_by_columns(int m, const Group& g) {
+  const int nt = (m + kTile - 1) / kTile;
+  Tile t;
+  t.valid = g.tid < nt * (nt + 1) / 2;
+  int q = t.valid ? g.tid : 0;
+  int tj = 0;
+  while (q >= nt - tj) {  // column tj holds nt - tj tiles
+    q -= nt - tj;
+    ++tj;
+  }
+  t.i0 = (nt - 1 - q) * kTile;
+  t.j0 = tj * kTile;
+  return t;
+}
+
+// Right-looking Cholesky in place on X (packed), the entries in registers.
+// C holds two column buffers (stride padded4(m)) and two pivot
+// reciprocals.  Step k: each thread scales its entries of column k (final
+// L, `* inv_d`), subtracts term k, L[i][k] L[j][k], from its entries with j
+// > k (L[.][k] read from the published column and scaled there as its owner
+// scales it, so the same bits), then publishes its entries of column k + 1
+// unscaled; the owner of (k + 1, k + 1) takes the pivot (clamp, sqrt) and
+// publishes 1 / d.  One barrier per column; each entry sees the terms in
+// the order of `cholesky`.
+template <typename T>
+__device__ void cta_cholesky_tiles(T* X, T* C, int m, const Group& g) {
+  const int mp = padded4(m);
+  T* inv = C + 2 * mp;
+  const Tile tl = tile_by_trailing(m, g);
+  const int i0 = tl.i0, j0 = tl.j0;
+  T acc[kTile][kTile];
+#pragma unroll
+  for (int r = 0; r < kTile; ++r) {
+#pragma unroll
+    for (int c = 0; c < kTile; ++c) {
+      const int i = i0 + r, j = j0 + c;
+      acc[r][c] = tl.valid && i < m && j <= i ? X[tri32(i) + j] : T(0);
+    }
+  }
+  if (tl.valid && j0 == 0) {  // column 0, unscaled, and pivot 0
+#pragma unroll
+    for (int r = 0; r < kTile; ++r) {
+      const int i = i0 + r;
+      if (i == 0) {
+        const T d = sqrt(clamp_pivot(acc[r][0]));
+        inv[0] = T(1) / d;
+        acc[r][0] = d;
+      } else if (i < m) {
+        C[i] = acc[r][0];
+      }
+    }
+  }
+  g.sync();
+  for (int k = 0; k + 1 < m; ++k) {
+    // work while the tile holds column k or a later one, below row k
+    if (tl.valid && j0 + kTile - 1 >= k && i0 + kTile - 1 > k) {
+      const T* ck = C + (k & 1) * mp;
+      T* cn = C + ((k + 1) & 1) * mp;
+      const T inv_k = inv[k & 1];
+      T a[kTile], b[kTile];
+      load_run(ck + i0, a);
+      load_run(ck + j0, b);
+#pragma unroll
+      for (int r = 0; r < kTile; ++r) {
+        a[r] = a[r] * inv_k;
+        b[r] = b[r] * inv_k;
+      }
+      if (j0 > k) {  // every column trailing
+#pragma unroll
+        for (int r = 0; r < kTile; ++r) {
+#pragma unroll
+          for (int c = 0; c < kTile; ++c) acc[r][c] = acc[r][c] - a[r] * b[c];
+        }
+      } else {  // the tile holds column k
+#pragma unroll
+        for (int r = 0; r < kTile; ++r) {
+#pragma unroll
+          for (int c = 0; c < kTile; ++c) {
+            if (j0 + c == k) {
+              if (i0 + r > k) acc[r][c] = acc[r][c] * inv_k;  // L[i][k]
+            } else if (j0 + c > k) {
+              acc[r][c] = acc[r][c] - a[r] * b[c];
+            }
+          }
+        }
+      }
+      if (j0 <= k + 1) {  // the tile holds column k + 1: publish it
+#pragma unroll
+        for (int c = 0; c < kTile; ++c) {
+          if (j0 + c != k + 1) continue;
+#pragma unroll
+          for (int r = 0; r < kTile; ++r) {
+            const int i = i0 + r;
+            if (i == k + 1) {
+              const T d = sqrt(clamp_pivot(acc[r][c]));
+              inv[(k + 1) & 1] = T(1) / d;
+              acc[r][c] = d;
+            } else if (i > k + 1 && i < m) {
+              cn[i] = acc[r][c];
+            }
+          }
+        }
+      }
+    }
+    g.sync();
+  }
+  if (tl.valid) {
+#pragma unroll
+    for (int r = 0; r < kTile; ++r) {
+#pragma unroll
+      for (int c = 0; c < kTile; ++c) {
+        const int i = i0 + r, j = j0 + c;
+        if (i < m && j <= i) X[tri32(i) + j] = acc[r][c];
+      }
+    }
+  }
+  g.sync();
+}
+
+// Li = L^-1 (into Y, packed) by rows, the entries in registers: step k adds
+// term k, L[i][k] Li[k][c], to each entry (i, c), i > k >= c (sums start at
+// -0, and -0 + x = x, so the first term c starts each sum as in
+// `inverse_factor`), and the owners of row k + 1 finish it (-acc /
+// L[k+1][k+1], 1 / L[k+1][k+1] on the diagonal) and publish it to C (two
+// row buffers, stride padded4(m)).  One barrier per row.
+template <typename T>
+__device__ void cta_invert_lower_tiles(const T* X, T* Y, T* C, int m, const Group& g) {
+  const int mp = padded4(m);
+  const Tile tl = tile_by_columns(m, g);
+  const int i0 = tl.i0, j0 = tl.j0;
+  T acc[kTile][kTile];
+#pragma unroll
+  for (int r = 0; r < kTile; ++r) {
+#pragma unroll
+    for (int c = 0; c < kTile; ++c) acc[r][c] = T(-0.0);
+  }
+  if (tl.valid && i0 == 0) {  // tile (0, 0): row 0
+    acc[0][0] = T(1) / X[0];
+    C[0] = acc[0][0];
+  }
+  g.sync();
+  for (int k = 0; k + 1 < m; ++k) {
+    // work while the tile holds rows below k and columns up to k + 1
+    if (tl.valid && i0 + kTile - 1 > k && j0 <= k + 1) {
+      const T* rk = C + (k & 1) * mp;  // row k of Li, columns 0..k
+      T* rn = C + ((k + 1) & 1) * mp;
+      T a[kTile], b[kTile];
+#pragma unroll
+      for (int r = 0; r < kTile; ++r) a[r] = X[tri32(min(i0 + r, m - 1)) + k];
+      load_run(rk + j0, b);
+      if (i0 > k + 1 && j0 + kTile - 1 <= k) {  // every entry takes term k, none finishes
+#pragma unroll
+        for (int r = 0; r < kTile; ++r) {
+#pragma unroll
+          for (int c = 0; c < kTile; ++c) acc[r][c] = acc[r][c] + a[r] * b[c];
+        }
+      } else {
+        const T dn = X[tri32(k + 1) + k + 1];  // L[k + 1][k + 1]
+#pragma unroll
+        for (int r = 0; r < kTile; ++r) {
+          const int i = i0 + r;
+#pragma unroll
+          for (int c = 0; c < kTile; ++c) {
+            const int j = j0 + c;
+            if (i > k && j <= k) acc[r][c] = acc[r][c] + a[r] * b[c];
+            if (i == k + 1 && j <= k + 1) {
+              acc[r][c] = j <= k ? -acc[r][c] / dn : T(1) / dn;
+              rn[j] = acc[r][c];
+            }
+          }
+        }
+      }
+    }
+    g.sync();
+  }
+  if (tl.valid) {
+#pragma unroll
+    for (int r = 0; r < kTile; ++r) {
+#pragma unroll
+      for (int c = 0; c < kTile; ++c) {
+        const int i = i0 + r, j = j0 + c;
+        if (i < m && j <= i) Y[tri32(i) + j] = acc[r][c];
+      }
+    }
+  }
+  g.sync();
+}
+
+// the two forms by M: register tiles up to kMaxRegisterM (the group holds
+// at least half a thread per tile), the shared-memory wavefront past it
+template <typename T>
+__device__ __forceinline__ void cta_cholesky(T* X, T* C, int m, const Group& g) {
+  if (m <= kMaxRegisterM) {
+    cta_cholesky_tiles(X, C, m, g);
+  } else {
+    cta_cholesky_shared(X, C, m, g);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void cta_invert_lower(const T* X, T* Y, T* C, int m, const Group& g) {
+  if (m <= kMaxRegisterM) {
+    cta_invert_lower_tiles(X, Y, C, m, g);
+  } else {
+    cta_invert_lower_shared(X, Y, m, g);
+  }
+}
+
+constexpr int kEntryTile = 4;  // S^-1 entries per thread: kEntryTile x kEntryTile
+
+// f(i, j, v) for every entry v = S^-1[i][j], i >= j, of S^-1 = Li^T Li (Li
+// packed in Y), spread over the group in kEntryTile x kEntryTile tiles of
+// the triangle, each thread holding its tile's sums in registers: per k it
+// reads kEntryTile values of row k for the tile's rows and as many for its
+// columns.  Each entry's sum runs over k = i, i + 1, ... in the order of
+// `inverse_entry`; it starts at -0, and -0 + x = x for every x, so the
+// first term is the sum's start as in the plain version.
+template <typename T, typename F>
+__device__ void cta_inverse_entries(const T* Y, int m, const Group& g, F f) {
+  constexpr int R = kEntryTile;
+  const int nt = (m + R - 1) / R;
+  const int tiles = nt * (nt + 1) / 2;
+  for (int q = g.tid; q < tiles; q += g.size) {
+    const int ti = packed_row(q), tj = q - tri32(ti);
+    const int i0 = ti * R, j0 = tj * R;
+    int ci[R];  // the tile's rows, those past m - 1 read row m - 1's column
+#pragma unroll
+    for (int r = 0; r < R; ++r) ci[r] = min(i0 + r, m - 1);
+    T acc[R][R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int c = 0; c < R; ++c) acc[r][c] = T(-0.0);
+    }
+    int k = i0;
+    // the first R values of k: entry (r, c) takes its terms from k = i0 + r
+    for (const int end = min(i0 + R, m); k < end; ++k) {
+      const T* Yk = Y + tri32(k);
+      T a[R], b[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) a[r] = Yk[min(ci[r], k)];
+#pragma unroll
+      for (int c = 0; c < R; ++c) b[c] = Yk[min(j0 + c, k)];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (k >= i0 + r) {
+#pragma unroll
+          for (int c = 0; c < R; ++c) acc[r][c] = acc[r][c] + a[r] * b[c];
+        }
+      }
+    }
+    for (; k < m; ++k) {
+      const T* Yk = Y + tri32(k);
+      T a[R], b[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) a[r] = Yk[ci[r]];
+#pragma unroll
+      for (int c = 0; c < R; ++c) b[c] = Yk[j0 + c];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+#pragma unroll
+        for (int c = 0; c < R; ++c) acc[r][c] = acc[r][c] + a[r] * b[c];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int c = 0; c < R; ++c) {
+        if (i0 + r < m && j0 + c <= i0 + r) f(i0 + r, j0 + c, acc[r][c]);
+      }
+    }
+  }
 }
 
 // Cholesky (X in place), L^-1 into Y, then the lower triangle of S^-1 into
 // X: on entry X holds the SPD matrix's lower triangle, packed
 template <typename T>
-__device__ __forceinline__ void cta_inverse(T* X, T* Y, int m, T* pivot) {
-  cta_cholesky(X, m, pivot);
-  cta_invert_lower(X, m, Y);
-  for_packed_entries(m, [&](int64_t e, int i, int j) { X[e] = cta_inverse_entry(Y, m, i, j); });
-  __syncthreads();
+__device__ __forceinline__ void cta_inverse(T* X, T* Y, T* C, int m, const Group& g) {
+  cta_cholesky(X, C, m, g);
+  cta_invert_lower(X, Y, C, m, g);
+  cta_inverse_entries(Y, m, g, [&](int i, int j, T v) { X[tri32(i) + j] = v; });
+  g.sync();
 }
 
 // the full m x m matrix whose lower triangle X holds (packed): symmetric,
@@ -921,17 +1360,16 @@ __device__ __forceinline__ void cta_store(T* out, const T* X, int m, bool symmet
   }
 }
 
-// elements of one CTA's workspace: the pivot (16 bytes), X and Y (two
-// packed triangles) and, for edge_factor_gain, the n squares
+// elements of one matrix's workspace: two columns (C), then X and Y (two
+// packed triangles), a multiple of 128 bytes so each slice stays aligned
 template <typename T>
-__host__ __device__ constexpr int64_t cta_pivot_elems() {
-  return 16 / static_cast<int64_t>(sizeof(T));
+__host__ __device__ constexpr int64_t cta_columns_elems(int m) {
+  return (2 * static_cast<int64_t>(padded4(m)) + 2 + 31) / 32 * 32;
 }
 
 template <typename T>
-int64_t cta_workspace_elems(int m, int squares) {
-  const int64_t elems = cta_pivot_elems<T>() + 2 * tri(m) + squares;
-  return (elems + 31) / 32 * 32;  // a multiple of 128 bytes, so each CTA's slice stays aligned
+int64_t cta_workspace_elems(int m) {
+  return (cta_columns_elems<T>(m) + 2 * tri(m) + 31) / 32 * 32;
 }
 
 // the workspace of CTA blockIdx.x: shared memory, or its slice of `global`
@@ -942,91 +1380,137 @@ __device__ __forceinline__ T* cta_workspace(T* global, int64_t elems) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(1024)
+__global__ void __launch_bounds__(kCtaThreads)
 spd_inverse_cta_kernel(const T* __restrict__ s, T* __restrict__ out, int64_t n, int m,
                        T* workspace, int64_t ws_elems) {
-  T* pivot = cta_workspace(workspace, ws_elems);
-  T* X = pivot + cta_pivot_elems<T>();
+  const Group grp{static_cast<int>(threadIdx.x), static_cast<int>(blockDim.x), 0};
+  T* C = cta_workspace(workspace, ws_elems);
+  T* X = C + cta_columns_elems<T>(m);
   T* Y = X + tri(m);
   const int64_t mm = static_cast<int64_t>(m) * m;
   for (int64_t b = blockIdx.x; b < n; b += gridDim.x) {
     const T* sb = s + b * mm;
     for_packed_entries(m, [&](int64_t e, int i, int j) { X[e] = sb[static_cast<int64_t>(i) * m + j]; });
     __syncthreads();
-    cta_inverse(X, Y, m, pivot);
+    cta_inverse(X, Y, C, m, grp);
     cta_store(out + b * mm, X, m, true);
     __syncthreads();  // the next matrix overwrites X
   }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(1024)
+__global__ void __launch_bounds__(kCtaThreads)
 spd_inverse_factor_cta_kernel(const T* __restrict__ s, T* __restrict__ inv,
                               T* __restrict__ chol, int64_t n, int m, T* workspace,
                               int64_t ws_elems) {
-  T* pivot = cta_workspace(workspace, ws_elems);
-  T* X = pivot + cta_pivot_elems<T>();
+  const Group grp{static_cast<int>(threadIdx.x), static_cast<int>(blockDim.x), 0};
+  T* C = cta_workspace(workspace, ws_elems);
+  T* X = C + cta_columns_elems<T>(m);
   T* Y = X + tri(m);
   const int64_t mm = static_cast<int64_t>(m) * m;
   for (int64_t b = blockIdx.x; b < n; b += gridDim.x) {
     const T* sb = s + b * mm;
     for_packed_entries(m, [&](int64_t e, int i, int j) { X[e] = sb[static_cast<int64_t>(i) * m + j]; });
     __syncthreads();
-    cta_inverse(X, Y, m, pivot);
+    cta_inverse(X, Y, C, m, grp);
     cta_store(inv + b * mm, X, m, true);
     __syncthreads();  // the store reads X before the factorisation overwrites it
-    cta_cholesky(X, m, pivot);  // U = chol(S^-1)
+    cta_cholesky(X, C, m, grp);  // U = chol(S^-1)
     cta_store(chol + b * mm, X, m, false);
     __syncthreads();
   }
 }
 
+// The trace product's CTA: `slots` blocks at once (consecutive blocks t0,
+// t0 + 1, ... of the flat (outer, inner) index, so consecutive in `inner`
+// within one o), each factored by its own group of blockDim.x / slots
+// threads and its own slice of the workspace.  Staging reads entry e of the
+// slots' blocks side by side (one 32-byte sector per entry for 8 float32
+// blocks); where inner < slots each group reads its own block, e fastest.
+// Block t0 + s's base: (o T) inner + c for (o, c) = divmod(t0 + s, inner).
 template <typename T>
-__global__ void __launch_bounds__(1024)
+__device__ __forceinline__ void stage_blocks(const T* __restrict__ src, T* ws, int64_t slot_elems,
+                                             int64_t x_off, int slots, int live, int64_t t0,
+                                             int64_t inner, int m, int slot, const Group& g) {
+  const int kT = tri32(m);
+  int s, e, de;
+  if (inner >= slots) {
+    s = static_cast<int>(threadIdx.x) & (slots - 1);
+    e = static_cast<int>(threadIdx.x) / slots;
+    de = static_cast<int>(blockDim.x) / slots;
+  } else {
+    s = slot;
+    e = g.tid;
+    de = g.size;
+  }
+  if (s >= live) return;
+  const int64_t t = t0 + s;
+  const int64_t o = t / inner;
+  const T* p = src + (o * kT) * inner + (t - o * inner);
+  T* x = ws + s * slot_elems + x_off;
+  for (; e < kT; e += de) x[e] = __ldg(p + static_cast<int64_t>(e) * inner);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kCtaThreads)
 spd_trace_product_cta_kernel(const T* __restrict__ s, const T* __restrict__ g,
                              T* __restrict__ out, int64_t outer, int64_t inner, int m,
-                             T* workspace, int64_t ws_elems) {
-  T* pivot = cta_workspace(workspace, ws_elems);
-  T* X = pivot + cta_pivot_elems<T>();
+                             int slots, T* workspace, int64_t ws_elems) {
+  const int tps = static_cast<int>(blockDim.x) / slots;
+  const int slot = static_cast<int>(threadIdx.x) / tps;
+  const Group grp{static_cast<int>(threadIdx.x) - slot * tps, tps, slots == 1 ? 0 : 1 + slot};
+  T* ws = cta_workspace(workspace, slots * ws_elems);
+  const int64_t x_off = cta_columns_elems<T>(m);
+  T* C = ws + slot * ws_elems;
+  T* X = C + x_off;
   T* Y = X + tri(m);
-  const int64_t kT = tri(m);
-  for (int64_t t = blockIdx.x; t < outer * inner; t += gridDim.x) {
-    const int64_t o = t / inner;
-    const int64_t base = o * (kT - 1) * inner + t;  // (o*T)*inner + (t - o*inner)
-    for_packed_entries(m, [&](int64_t e, int, int) { X[e] = s[base + e * inner]; });
+  const int kT = tri32(m);
+  const int64_t total = outer * inner;
+  for (int64_t t0 = static_cast<int64_t>(blockIdx.x) * slots; t0 < total;
+       t0 += static_cast<int64_t>(gridDim.x) * slots) {
+    const int live = total - t0 < slots ? static_cast<int>(total - t0) : slots;
+    stage_blocks(s, ws, ws_elems, x_off, slots, live, t0, inner, m, slot, grp);
     __syncthreads();
-    cta_cholesky(X, m, pivot);
-    cta_invert_lower(X, m, Y);
-    // X is spent: the terms, in packed order
-    for_packed_entries(m, [&](int64_t e, int i, int j) {
-      T term = cta_inverse_entry(Y, m, i, j) * g[base + e * inner];
-      if (i != j) term = term + term;
-      X[e] = term;
-    });
+    if (slot < live) {
+      cta_cholesky(X, C, m, grp);
+      cta_invert_lower(X, Y, C, m, grp);
+    }
+    __syncthreads();  // X (L) is spent in every slot: G's entries take its place
+    stage_blocks(g, ws, ws_elems, x_off, slots, live, t0, inner, m, slot, grp);
     __syncthreads();
-    if (threadIdx.x == 0) {  // the sum in packed order, as the plain version's
-      T total = X[0];
-      for (int64_t e = 1; e < kT; ++e) total = total + X[e];
-      out[t] = total;
+    if (slot < live) {  // the terms, in packed order, over G's entries
+      cta_inverse_entries(Y, m, grp, [&](int i, int j, T v) {
+        const int e = tri32(i) + j;
+        T term = v * X[e];
+        if (i != j) term = term + term;
+        X[e] = term;
+      });
     }
     __syncthreads();
+    if (static_cast<int>(threadIdx.x) < live) {  // block t0 + threadIdx.x's sum, in packed order
+      const T* terms = ws + threadIdx.x * ws_elems + x_off;
+      T sum = terms[0];
+      for (int e = 1; e < kT; ++e) sum = sum + terms[e];
+      out[t0 + threadIdx.x] = sum;
+    }
+    __syncthreads();  // the next blocks overwrite every slot
   }
 }
 
-constexpr int kWctRows = 8;  // rows of WcT that one pass over A's column accumulates
-
+// edge_factor_gain's CTA route, part 1: per mission, U = chol(S^-1) of
+// S = 0.5 (S_raw + S_raw^T) + diag(R[a]), written dense to u (rows of ldu
+// elements, zeros above the diagonal and in the padding)
 template <typename T>
-__global__ void __launch_bounds__(1024)
-edge_factor_gain_cta_kernel(const T* __restrict__ s_raw, const T* __restrict__ a_blk,
-                            const T* __restrict__ r_table, const int64_t* __restrict__ action,
-                            const T* __restrict__ mask, int64_t mask_stride,
-                            T* __restrict__ wct, T* __restrict__ gain, int64_t n_missions,
-                            int n, int m, int round_bf16, T* workspace, int64_t ws_elems) {
-  T* pivot = cta_workspace(workspace, ws_elems);
-  T* X = pivot + cta_pivot_elems<T>();  // S, L, S^-1, then U
-  T* Y = X + tri(m);                    // L^-1
-  T* SQ = Y + tri(m);                   // the masked squares of each column
+__global__ void __launch_bounds__(kCtaThreads)
+edge_factor_cta_kernel(const T* __restrict__ s_raw, const T* __restrict__ r_table,
+                       const int64_t* __restrict__ action, T* __restrict__ u, int ldu,
+                       int64_t n_missions, int m, T* workspace, int64_t ws_elems) {
+  const Group grp{static_cast<int>(threadIdx.x), static_cast<int>(blockDim.x), 0};
+  T* C = cta_workspace(workspace, ws_elems);
+  T* X = C + cta_columns_elems<T>(m);  // S, L, S^-1, then U
+  T* Y = X + tri(m);                   // L^-1
   const int64_t mm = static_cast<int64_t>(m) * m;
+  const int lane = static_cast<int>(threadIdx.x) & 31;
   for (int64_t b = blockIdx.x; b < n_missions; b += gridDim.x) {
     const T* S = s_raw + b * mm;
     const T* R = r_table + __ldg(reinterpret_cast<const long long*>(action) + b) * m;
@@ -1036,94 +1520,224 @@ edge_factor_gain_cta_kernel(const T* __restrict__ s_raw, const T* __restrict__ a
              (i == j ? R[i] : T(0));
     });
     __syncthreads();
-    cta_inverse(X, Y, m, pivot);
-    cta_cholesky(X, m, pivot);  // U = chol(S^-1)
-
-    // WcT = U^T A in _small_mm order, kWctRows rows per pass over a column
-    // of A (read from global memory, the threads on consecutive columns);
-    // then each column's squares, summed over m in order, and masked
-    const T* A = a_blk + b * m * static_cast<int64_t>(n);
-    T* out = wct + b * m * static_cast<int64_t>(n);
-    const T* mrow = mask == nullptr ? nullptr : mask + b * mask_stride;
-    for (int col = threadIdx.x; col < n; col += blockDim.x) {
-      T sq = T(0);
-      for (int r0 = 0; r0 < m; r0 += kWctRows) {
-        T acc[kWctRows];
-        const T a0 = __ldg(A + col);
-#pragma unroll
-        for (int q = 0; q < kWctRows; ++q) acc[q] = (r0 + q == 0 ? X[0] : T(0)) * a0;
-        int64_t p = 0;  // tri(k)
-        for (int k = 1; k < m; ++k) {
-          p += k;
-          const T a = __ldg(A + static_cast<int64_t>(k) * n + col);
-#pragma unroll
-          for (int q = 0; q < kWctRows; ++q) {
-            const int r = r0 + q;  // U[k][r], zero above the diagonal and past row m - 1
-            acc[q] = acc[q] + (k >= r ? X[p + r] : T(0)) * a;
-          }
-        }
-#pragma unroll
-        for (int q = 0; q < kWctRows; ++q) {
-          const int r = r0 + q;
-          if (r < m) {
-            const T v = round_bf16 ? round_to_bf16(acc[q]) : acc[q];
-            out[static_cast<int64_t>(r) * n + col] = v;
-            sq = r == 0 ? v * v : sq + v * v;
-          }
-        }
-      }
-      if (mrow != nullptr) sq = sq * __ldg(mrow + col);
-      SQ[col] = sq;
+    cta_inverse(X, Y, C, m, grp);
+    cta_cholesky(X, C, m, grp);  // U = chol(S^-1)
+    T* ub = u + b * m * static_cast<int64_t>(ldu);
+    for (int k = static_cast<int>(threadIdx.x) >> 5; k < m; k += static_cast<int>(blockDim.x) >> 5) {
+      const T* row = X + tri32(k);
+      for (int col = lane; col < ldu; col += 32) ub[static_cast<int64_t>(k) * ldu + col] = col <= k ? row[col] : T(0);
     }
-    __syncthreads();
-    // gain: warp 0 walks the squares in the warp route's order (lane l adds
-    // columns l, l + 32, ... in turn, zero past n), then the xor tree
-    if (threadIdx.x < 32) {
-      const int lane = static_cast<int>(threadIdx.x);
-      T gsum = T(0);
-      for (int c = 0, col = lane; col - lane < n; ++c, col += 32) {
-        const T sq = col < n ? SQ[col] : T(0);
-        gsum = c == 0 ? sq : gsum + sq;
-      }
-#pragma unroll
-      for (int w = 16; w >= 1; w >>= 1) gsum = gsum + __shfl_xor_sync(kFullMask, gsum, w);
-      if (lane == 0) gain[b] = gsum;
-    }
-    __syncthreads();
+    __syncthreads();  // the next mission overwrites X
   }
+}
+
+// Part 2, WcT = U^T A.  A CTA of kProdThreads (16 x 16) threads owns a
+// column tile of kProdCols columns of one mission's A and every row of WcT
+// (in passes of 16 TM rows); each thread keeps a TM x 4 register tile.  Per
+// k-chunk of kProdK rows, U's rows (a contiguous run of 16 TM elements) and
+// A's rows (kProdCols columns) are copied into shared memory with cp.async,
+// double-buffered, the next chunk in flight while this one is multiplied.
+// Every output is summed over k = 0..m-1 in ascending order from -0, one
+// product and one add at a time, U's zeros above its diagonal kept: the
+// _small_mm order.  Then the bf16 round trip, WcT's rows stored coalesced
+// along N, the tile staged once more in shared memory so that thread c adds
+// its column's squares over the rows in order, and the mask: the masked
+// squares go to sq (n_missions, n).
+constexpr int kProdThreads = 256;
+constexpr int kProdCols = 64;
+constexpr int kProdK = 16;
+
+template <typename T, int TM>
+struct ProdShape {
+  static constexpr int rows = 16 * TM;                         // rows of WcT per pass
+  static constexpr int stage = kProdK * (rows + kProdCols);    // elements of one stage
+  static constexpr int elems = 2 * stage > rows * kProdCols ? 2 * stage : rows * kProdCols;
+};
+
+template <typename T, int TM>
+__global__ void __launch_bounds__(kProdThreads)
+edge_product_kernel(const T* __restrict__ u, int ldu, const T* __restrict__ a_blk,
+                    const T* __restrict__ mask, int64_t mask_stride, T* __restrict__ wct,
+                    T* __restrict__ sq_out, int64_t n_missions, int n, int m, int round_bf16) {
+  using Shape = ProdShape<T, TM>;
+  constexpr int kRows = Shape::rows;
+  constexpr int kVec = 16 / static_cast<int>(sizeof(T));  // elements per 16-byte copy
+  extern __shared__ __align__(16) unsigned char prod_smem[];
+  T* sm = reinterpret_cast<T*>(prod_smem);
+  const int tx = static_cast<int>(threadIdx.x) & 15, ty = static_cast<int>(threadIdx.x) >> 4;
+  const int n0 = static_cast<int>(blockIdx.x) * kProdCols;
+  const bool vec_a = (reinterpret_cast<uintptr_t>(a_blk) & 15) == 0 &&
+                     (static_cast<int64_t>(n) * sizeof(T)) % 16 == 0;
+  for (int64_t b = blockIdx.y; b < n_missions; b += gridDim.y) {
+    const T* ub = u + b * m * static_cast<int64_t>(ldu);
+    const T* ab = a_blk + b * m * static_cast<int64_t>(n);
+    T* ob = wct + b * m * static_cast<int64_t>(n);
+    T sq = T(-0.0);  // column n0 + threadIdx.x's sum of squares (threads < kProdCols)
+    for (int r0 = 0; r0 < m; r0 += kRows) {
+      // rows kc .. kc + kProdK - 1 (those below m) of U (columns r0 ..) and A
+      // (columns n0 ..) into stage buf, as one cp.async group
+      auto stage = [&](int kc, int buf) {
+        T* us = sm + buf * Shape::stage;
+        T* as = us + kProdK * kRows;
+        const int kr = m - kc < kProdK ? m - kc : kProdK;
+        for (int v = threadIdx.x; v < kr * (kRows / kVec); v += kProdThreads) {
+          const int kk = v / (kRows / kVec), c = (v % (kRows / kVec)) * kVec;
+          cp_async_16(us + kk * kRows + c, ub + static_cast<int64_t>(kc + kk) * ldu + r0 + c);
+        }
+        if (vec_a) {
+          for (int v = threadIdx.x; v < kr * (kProdCols / kVec); v += kProdThreads) {
+            const int kk = v / (kProdCols / kVec), c = (v % (kProdCols / kVec)) * kVec;
+            if (n0 + c < n) {
+              cp_async_16(as + kk * kProdCols + c, ab + static_cast<int64_t>(kc + kk) * n + n0 + c);
+            }
+          }
+        } else {
+          for (int v = threadIdx.x; v < kr * kProdCols; v += kProdThreads) {
+            const int kk = v / kProdCols, c = v % kProdCols;
+            if (n0 + c < n) {
+              cp_async_small<sizeof(T)>(as + kk * kProdCols + c,
+                                        ab + static_cast<int64_t>(kc + kk) * n + n0 + c);
+            }
+          }
+        }
+        cp_async_commit();
+      };
+
+      T acc[TM][4];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = T(-0.0);
+      }
+      stage(0, 0);
+      int buf = 0;
+      for (int kc = 0; kc < m; kc += kProdK, buf ^= 1) {
+        if (kc + kProdK < m) {
+          stage(kc + kProdK, buf ^ 1);
+          cp_async_wait<1>();  // this chunk has landed; the next may be in flight
+        } else {
+          cp_async_wait<0>();
+        }
+        __syncthreads();
+        const T* us = sm + buf * Shape::stage;
+        const T* as = us + kProdK * kRows;
+        const int kr = m - kc < kProdK ? m - kc : kProdK;
+#pragma unroll
+        for (int kk = 0; kk < kProdK; ++kk) {
+          if (kk < kr) {
+            T uv[TM], av[4];
+            load_run(us + kk * kRows + ty * TM, uv);
+            load_run(as + kk * kProdCols + tx * 4, av);
+#pragma unroll
+            for (int i = 0; i < TM; ++i) {
+#pragma unroll
+              for (int j = 0; j < 4; ++j) acc[i][j] = acc[i][j] + uv[i] * av[j];
+            }
+          }
+        }
+        __syncthreads();  // every thread is done with buf before a stage refills it
+      }
+
+      // the bf16 round trip and the stores of rows r0 + ty TM + i
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const int row = r0 + ty * TM + i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (round_bf16) acc[i][j] = round_to_bf16(acc[i][j]);
+          const int col = n0 + tx * 4 + j;
+          if (row < m && col < n) ob[static_cast<int64_t>(row) * n + col] = acc[i][j];
+        }
+      }
+      T* tile = sm;  // (kRows, kProdCols): the stages are spent
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) tile[(ty * TM + i) * kProdCols + tx * 4 + j] = acc[i][j];
+      }
+      __syncthreads();
+      if (threadIdx.x < kProdCols) {
+        const int rend = m - r0 < kRows ? m - r0 : kRows;
+        for (int r = 0; r < rend; ++r) {
+          const T v = tile[r * kProdCols + threadIdx.x];
+          sq = sq + v * v;
+        }
+      }
+      __syncthreads();  // the next pass's stages overwrite the tile
+    }
+    const int col = n0 + static_cast<int>(threadIdx.x);
+    if (threadIdx.x < kProdCols && col < n) {
+      if (mask != nullptr) sq = sq * __ldg(mask + b * mask_stride + col);
+      sq_out[b * n + col] = sq;
+    }
+  }
+}
+
+// Part 3, the gain: one warp per mission walks its masked squares in the
+// warp route's order (lane l adds columns l, l + 32, ... in turn, zero past
+// n), then the xor tree, so the gain is the warp route's bit for bit.
+constexpr int kGainWarps = 4;
+
+template <typename T>
+__global__ void __launch_bounds__(kGainWarps * 32)
+edge_gain_kernel(const T* __restrict__ sq, T* __restrict__ gain, int64_t n_missions, int n) {
+  const int lane = static_cast<int>(threadIdx.x) & 31;
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * kGainWarps + (threadIdx.x >> 5);
+  if (b >= n_missions) return;  // whole warps only
+  const T* row = sq + b * n;
+  T g = T(0);
+  for (int c = 0, col = lane; col - lane < n; ++c, col += 32) {
+    const T v = col < n ? row[col] : T(0);
+    g = c == 0 ? v : g + v;
+  }
+#pragma unroll
+  for (int w = 16; w >= 1; w >>= 1) g = g + __shfl_xor_sync(kFullMask, g, w);
+  if (lane == 0) gain[b] = g;
 }
 
 // the CTA route's workspace limit in shared memory (bytes per CTA); past it
 // the workspace is global memory.  Tests lower it to drive the global path.
 int g_cta_shared_limit = kMaxSharedBytes;
 constexpr int kWorkspaceCtas = 264;  // CTAs of a launch whose workspace is global memory
+constexpr int kTraceSlots = 2;       // blocks per CTA of the trace product, at most
 
-// threads of a CTA: one per row (a whole number of warps, at most 1024);
-// edge_factor_gain takes at least 256, which share the columns of U^T A
-inline int cta_threads(int m, bool edge) {
-  int t = (m + 31) / 32 * 32;
-  if (edge && t < 256) t = 256;
-  return t < 1024 ? t : 1024;
+// threads that factor one matrix (a whole number of warps, at most
+// kCtaThreads): one per register tile up to kMaxRegisterM, else one per row
+inline int cta_threads(int m) {
+  const int nt = (m + kTile - 1) / kTile;
+  const int need = m <= kMaxRegisterM ? nt * (nt + 1) / 2 : m;
+  const int t = (need + 31) / 32 * 32;
+  return t < kCtaThreads ? t : kCtaThreads;
 }
 
-// where the CTA route keeps a launch's workspace: `shared_bytes` > 0 for
-// shared memory, else `global_bytes` of global memory for `ctas` CTAs
+// Where the CTA route keeps a launch's workspace: `slots` matrices per CTA
+// (a power of two; more than one only in shared memory), `shared_bytes` > 0
+// for shared memory, else `global_bytes` of global memory for `ctas` CTAs.
 struct CtaPlan {
-  int64_t ws_elems;
+  int64_t ws_elems;  // one matrix's
+  int slots;
   unsigned ctas;
+  unsigned threads;
   size_t shared_bytes;
   int64_t global_bytes;
 };
 
 template <typename T>
-CtaPlan cta_plan(int m, int squares, int64_t count) {
+CtaPlan cta_plan(int m, int64_t count, int max_slots) {
   CtaPlan p;
-  p.ws_elems = cta_workspace_elems<T>(m, squares);
+  p.ws_elems = cta_workspace_elems<T>(m);
   const int64_t bytes = p.ws_elems * static_cast<int64_t>(sizeof(T));
   const bool shared = bytes <= g_cta_shared_limit;
+  p.slots = 1;
+  while (shared && p.slots < max_slots && p.slots < count &&
+         2 * p.slots * bytes <= g_cta_shared_limit && 2 * p.slots * cta_threads(m) <= kCtaThreads) {
+    p.slots *= 2;
+  }
+  p.threads = static_cast<unsigned>(p.slots * cta_threads(m));
+  const int64_t groups = (count + p.slots - 1) / p.slots;
   const int64_t cap = shared ? 0x7fffffff : kWorkspaceCtas;
-  p.ctas = static_cast<unsigned>(count < cap ? count : cap);
-  p.shared_bytes = shared ? static_cast<size_t>(bytes) : 0;
+  p.ctas = static_cast<unsigned>(groups < cap ? groups : cap);
+  p.shared_bytes = shared ? static_cast<size_t>(p.slots * bytes) : 0;
   p.global_bytes = shared ? 0 : bytes * p.ctas;
   return p;
 }
@@ -1141,11 +1755,11 @@ T* plan_workspace(const CtaPlan& p, void* workspace) {
 template <typename T>
 int launch_inverse_cta(const void* s, void* out, int64_t n, int m, void* workspace,
                        cudaStream_t stream) {
-  const CtaPlan p = cta_plan<T>(m, 0, n);
+  const CtaPlan p = cta_plan<T>(m, n, 1);
   auto kernel = spd_inverse_cta_kernel<T>;
   if (int err = check_workspace(p, workspace)) return err;
   if (int err = allow_shared(kernel, p.shared_bytes)) return err;
-  kernel<<<p.ctas, cta_threads(m, false), p.shared_bytes, stream>>>(
+  kernel<<<p.ctas, p.threads, p.shared_bytes, stream>>>(
       static_cast<const T*>(s), static_cast<T*>(out), n, m, plan_workspace<T>(p, workspace),
       p.ws_elems);
   return static_cast<int>(cudaGetLastError());
@@ -1154,11 +1768,11 @@ int launch_inverse_cta(const void* s, void* out, int64_t n, int m, void* workspa
 template <typename T>
 int launch_inverse_factor_cta(const void* s, void* inv, void* chol, int64_t n, int m,
                               void* workspace, cudaStream_t stream) {
-  const CtaPlan p = cta_plan<T>(m, 0, n);
+  const CtaPlan p = cta_plan<T>(m, n, 1);
   auto kernel = spd_inverse_factor_cta_kernel<T>;
   if (int err = check_workspace(p, workspace)) return err;
   if (int err = allow_shared(kernel, p.shared_bytes)) return err;
-  kernel<<<p.ctas, cta_threads(m, false), p.shared_bytes, stream>>>(
+  kernel<<<p.ctas, p.threads, p.shared_bytes, stream>>>(
       static_cast<const T*>(s), static_cast<T*>(inv), static_cast<T*>(chol), n, m,
       plan_workspace<T>(p, workspace), p.ws_elems);
   return static_cast<int>(cudaGetLastError());
@@ -1167,13 +1781,59 @@ int launch_inverse_factor_cta(const void* s, void* inv, void* chol, int64_t n, i
 template <typename T>
 int launch_trace_cta(const void* s, const void* g, void* out, int64_t outer, int64_t inner,
                      int m, void* workspace, cudaStream_t stream) {
-  const CtaPlan p = cta_plan<T>(m, 0, outer * inner);
+  const CtaPlan p = cta_plan<T>(m, outer * inner, kTraceSlots);
   auto kernel = spd_trace_product_cta_kernel<T>;
   if (int err = check_workspace(p, workspace)) return err;
   if (int err = allow_shared(kernel, p.shared_bytes)) return err;
-  kernel<<<p.ctas, cta_threads(m, false), p.shared_bytes, stream>>>(
+  kernel<<<p.ctas, p.threads, p.shared_bytes, stream>>>(
       static_cast<const T*>(s), static_cast<const T*>(g), static_cast<T*>(out), outer, inner, m,
-      plan_workspace<T>(p, workspace), p.ws_elems);
+      p.slots, plan_workspace<T>(p, workspace), p.ws_elems);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// edge_factor_gain's CTA route needs, besides the factor's plan, U for
+// every mission (rows of ldu elements, padded to the product's pass of
+// 16 TM rows) and the masked squares (n_missions, n), both in the caller's
+// global workspace: U, then the squares, then the factor's global
+// workspace where it has one, each at a multiple of 256 bytes.
+inline int prod_tm(int m) { return m <= 32 ? 2 : 8; }
+
+struct EdgePlan {
+  CtaPlan factor;
+  int tm;
+  int ldu;
+  int64_t u_bytes;
+  int64_t sq_bytes;
+  int64_t bytes;  // of global workspace in all
+};
+
+inline int64_t round256(int64_t bytes) { return (bytes + 255) / 256 * 256; }
+
+template <typename T>
+EdgePlan edge_plan(int m, int n, int64_t n_missions) {
+  EdgePlan p;
+  p.factor = cta_plan<T>(m, n_missions, 1);
+  p.tm = prod_tm(m);
+  const int rows = 16 * p.tm;
+  p.ldu = (m + rows - 1) / rows * rows;
+  p.u_bytes = round256(n_missions * m * static_cast<int64_t>(p.ldu) * sizeof(T));
+  p.sq_bytes = round256(n_missions * static_cast<int64_t>(n) * sizeof(T));
+  p.bytes = p.u_bytes + p.sq_bytes + p.factor.global_bytes;
+  return p;
+}
+
+template <typename T, int TM>
+int launch_edge_product(const T* u, int ldu, const void* a_blk, const void* mask,
+                        int64_t mask_stride, void* wct, T* sq, int64_t n_missions, int n, int m,
+                        int round_bf16, cudaStream_t stream) {
+  auto kernel = edge_product_kernel<T, TM>;
+  const size_t bytes = ProdShape<T, TM>::elems * sizeof(T);
+  if (int err = allow_shared(kernel, bytes)) return err;
+  const dim3 grid(static_cast<unsigned>((n + kProdCols - 1) / kProdCols),
+                  static_cast<unsigned>(n_missions < 65535 ? n_missions : 65535));
+  kernel<<<grid, kProdThreads, bytes, stream>>>(
+      u, ldu, static_cast<const T*>(a_blk), static_cast<const T*>(mask), mask_stride,
+      static_cast<T*>(wct), sq, n_missions, n, m, round_bf16);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1182,15 +1842,26 @@ int launch_edge_cta(const void* s, const void* a_blk, const void* r, const void*
                     const void* mask, int64_t mask_stride, void* wct, void* gain,
                     int64_t n_missions, int n, int m, int round_bf16, void* workspace,
                     cudaStream_t stream) {
-  const CtaPlan p = cta_plan<T>(m, n, n_missions);
-  auto kernel = edge_factor_gain_cta_kernel<T>;
-  if (int err = check_workspace(p, workspace)) return err;
-  if (int err = allow_shared(kernel, p.shared_bytes)) return err;
-  kernel<<<p.ctas, cta_threads(m, true), p.shared_bytes, stream>>>(
-      static_cast<const T*>(s), static_cast<const T*>(a_blk), static_cast<const T*>(r),
-      static_cast<const int64_t*>(action), static_cast<const T*>(mask), mask_stride,
-      static_cast<T*>(wct), static_cast<T*>(gain), n_missions, n, m, round_bf16,
-      plan_workspace<T>(p, workspace), p.ws_elems);
+  const EdgePlan p = edge_plan<T>(m, n, n_missions);
+  if (workspace == nullptr) return -2;
+  char* ws = static_cast<char*>(workspace);
+  T* u = reinterpret_cast<T*>(ws);
+  T* sq = reinterpret_cast<T*>(ws + p.u_bytes);
+  void* factor_ws = p.factor.global_bytes > 0 ? ws + p.u_bytes + p.sq_bytes : nullptr;
+  auto factor = edge_factor_cta_kernel<T>;
+  if (int err = allow_shared(factor, p.factor.shared_bytes)) return err;
+  factor<<<p.factor.ctas, p.factor.threads, p.factor.shared_bytes, stream>>>(
+      static_cast<const T*>(s), static_cast<const T*>(r), static_cast<const int64_t*>(action), u,
+      p.ldu, n_missions, m, plan_workspace<T>(p.factor, factor_ws), p.factor.ws_elems);
+  if (int err = static_cast<int>(cudaGetLastError())) return err;
+  int err;
+  switch (p.tm) {
+    case 2: err = launch_edge_product<T, 2>(u, p.ldu, a_blk, mask, mask_stride, wct, sq, n_missions, n, m, round_bf16, stream); break;
+    default: err = launch_edge_product<T, 8>(u, p.ldu, a_blk, mask, mask_stride, wct, sq, n_missions, n, m, round_bf16, stream); break;
+  }
+  if (err) return err;
+  edge_gain_kernel<T><<<static_cast<unsigned>((n_missions + kGainWarps - 1) / kGainWarps),
+                        kGainWarps * 32, 0, stream>>>(sq, static_cast<T*>(gain), n_missions, n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1317,7 +1988,7 @@ int dispatch_m(int m, F f) {
     case 12: return f.template run<12, T>();
     default:
       if (m > kMaxUnrolledM && m <= kMaxWarpM) return f.template run_large<T>(m);
-      if (m > kMaxWarpM) return f.template run_cta<T>(m);
+      if (m > kMaxWarpM && m <= kMaxCtaM) return f.template run_cta<T>(m);
       return -1;
   }
 }
@@ -1400,17 +2071,17 @@ int launch(int m, int dtype, F f) {
 // takes the launch
 template <typename T>
 long long workspace_bytes(int kind, int m, int n_cells, long long count) {
-  if (count <= 0 || m < 1) return 0;
+  if (count <= 0 || m < 1 || m > kMaxCtaM) return 0;
   if (kind == 3) {  // edge_factor_gain: the register route unless its slices do not fit
     if (m <= kMaxUnrolledM) {
       if (edge_register_bytes<T>(m, n_cells) <= kMaxSharedBytes) return 0;
     } else if (m <= kMaxWarpM) {
       return 0;
     }
-    return cta_plan<T>(m, n_cells, count).global_bytes;
+    return edge_plan<T>(m, n_cells, count).bytes;
   }
   if (m <= kMaxWarpM) return 0;
-  return cta_plan<T>(m, 0, count).global_bytes;
+  return cta_plan<T>(m, count, kind == 2 ? kTraceSlots : 1).global_bytes;
 }
 
 }  // namespace

@@ -4,10 +4,13 @@
 ``edge_factor_gain`` take CPU tensors to their plain PyTorch versions
 (ops/smallchol.py) and
 CUDA tensors to the kernels at any M >= 1,
-with no fallback: a CUDA tensor the kernel cannot take raises.  Where the
-kernels' route for M >= 33 needs more workspace than a CTA's shared memory
-holds, the wrapper allocates it with ``torch.empty`` on the caller's device
-(the caching allocator's, on the current stream).  Each
+with no fallback: a CUDA tensor the kernel cannot take raises.  Each
+launch runs under its inputs' device, on that device's current stream.
+Where the kernels' route for M >= 33 needs global memory (a workspace past
+a CTA's shared memory, and ``edge_factor_gain``'s factor and squares
+between its three device kernels), the wrapper allocates it with
+``torch.empty`` on the inputs' device (the caching allocator's, on that
+stream).  Each
 carries a plain integer ``launches`` that it increments where it launches
 its kernel and nowhere else, so a run can show that its path went through
 the kernels.
@@ -42,6 +45,8 @@ NVCC_FLAGS = (
     # no multiply-add contraction: the kernels round like the plain versions
     "-fmad=false",
     "-Xptxas", "-v",
+    # optimise the one source's kernels in parallel, on every core
+    "--split-compile=0",
     "-shared", "-Xcompiler", "-fPIC",
 )
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
@@ -183,17 +188,18 @@ def spd_inverse(S: torch.Tensor) -> torch.Tensor:
     if S.ndim < 2 or S.shape[-1] != S.shape[-2]:
         raise ValueError(f"spd_inverse: expected (..., M, M), got {tuple(S.shape)}")
     code = _check("spd_inverse", S)
-    lib = _lib or _load()
     M = S.shape[-1]
     _check_m("spd_inverse", M)
     out = torch.empty_like(S)
     n = S.numel() // (M * M)
     if n:
-        ws = _workspace(lib, _INVERSE, M, 0, n, code, S.device)
-        err = lib.smallchol_spd_inverse(
-            S.data_ptr(), out.data_ptr(), n, M, code, _ptr(ws),
-            torch.cuda.current_stream().cuda_stream,
-        )
+        with torch.cuda.device(S.device):
+            lib = _lib or _load()
+            ws = _workspace(lib, _INVERSE, M, 0, n, code, S.device)
+            err = lib.smallchol_spd_inverse(
+                S.data_ptr(), out.data_ptr(), n, M, code, _ptr(ws),
+                torch.cuda.current_stream(S.device).cuda_stream,
+            )
         _raise_on("spd_inverse", err)
         spd_inverse.launches += 1
     return out
@@ -210,17 +216,18 @@ def spd_inverse_factor(S: torch.Tensor) -> tuple:
     if S.ndim < 2 or S.shape[-1] != S.shape[-2]:
         raise ValueError(f"spd_inverse_factor: expected (..., M, M), got {tuple(S.shape)}")
     code = _check("spd_inverse_factor", S)
-    lib = _lib or _load()
     M = S.shape[-1]
     _check_m("spd_inverse_factor", M)
     inv, chol = torch.empty_like(S), torch.empty_like(S)
     n = S.numel() // (M * M)
     if n:
-        ws = _workspace(lib, _INVERSE_FACTOR, M, 0, n, code, S.device)
-        err = lib.smallchol_spd_inverse_factor(
-            S.data_ptr(), inv.data_ptr(), chol.data_ptr(), n, M, code, _ptr(ws),
-            torch.cuda.current_stream().cuda_stream,
-        )
+        with torch.cuda.device(S.device):
+            lib = _lib or _load()
+            ws = _workspace(lib, _INVERSE_FACTOR, M, 0, n, code, S.device)
+            err = lib.smallchol_spd_inverse_factor(
+                S.data_ptr(), inv.data_ptr(), chol.data_ptr(), n, M, code, _ptr(ws),
+                torch.cuda.current_stream(S.device).cuda_stream,
+            )
         _raise_on("spd_inverse_factor", err)
         spd_inverse_factor.launches += 1
     return inv, chol
@@ -238,17 +245,18 @@ def spd_trace_product_packed(S: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
     if S.ndim != 3:
         raise ValueError(f"spd_trace_product: expected (outer, T, inner), got {tuple(S.shape)}")
     code = _check("spd_trace_product", S, G)
-    lib = _lib or _load()
     outer, T, inner = S.shape
     M = smallchol.packed_m(T)
     _check_m("spd_trace_product", M)
     out = torch.empty((outer, inner), dtype=S.dtype, device=S.device)
     if out.numel():
-        ws = _workspace(lib, _TRACE, M, 0, outer * inner, code, S.device)
-        err = lib.smallchol_spd_trace_product(
-            S.data_ptr(), G.data_ptr(), out.data_ptr(), outer, inner, M, code, _ptr(ws),
-            torch.cuda.current_stream().cuda_stream,
-        )
+        with torch.cuda.device(S.device):
+            lib = _lib or _load()
+            ws = _workspace(lib, _TRACE, M, 0, outer * inner, code, S.device)
+            err = lib.smallchol_spd_trace_product(
+                S.data_ptr(), G.data_ptr(), out.data_ptr(), outer, inner, M, code, _ptr(ws),
+                torch.cuda.current_stream(S.device).cuda_stream,
+            )
         _raise_on("spd_trace_product", err)
         spd_trace_product_packed.launches += 1
     return out
@@ -268,7 +276,8 @@ def edge_factor_gain(
     """(Wcᵀ (B, M, N), gain (B,)) of the search's edge update from S_raw
     (B, M, M), A (B, M, N), the R table (num_actions, M), the actions a
     (B,) int64 and a mask (N,) or (B, N) or None
-    (ops/smallchol.edge_factor_gain): one launch."""
+    (ops/smallchol.edge_factor_gain): one launch (at M >= 33 three device
+    kernels on one stream: factor, Uᵀ·A, gain)."""
     inputs = [S_raw, A, R_table, a] + ([] if diag_mask is None else [diag_mask])
     if all(t.device.type == "cpu" for t in inputs):
         return smallchol.edge_factor_gain(S_raw, A, R_table, a, diag_mask, round_bf16)
@@ -295,19 +304,20 @@ def edge_factor_gain(
     code = _DTYPE_CODES.get(A.dtype)
     if code is None:
         raise TypeError(f"{name}: float32 or float64 only, got {A.dtype}")
-    lib = _lib or _load()
     _check_m(name, M)
     WcT = torch.empty_like(A)
     gain = torch.empty((B,), dtype=A.dtype, device=A.device)
     if B:
         mask_stride = 0 if diag_mask is None or diag_mask.ndim == 1 else N
-        ws = _workspace(lib, _EDGE, M, N, B, code, A.device)
-        err = lib.smallchol_edge_factor_gain(
-            S_raw.data_ptr(), A.data_ptr(), R_table.data_ptr(), a.data_ptr(),
-            _ptr(diag_mask), mask_stride,
-            WcT.data_ptr(), gain.data_ptr(), B, M, N, int(round_bf16), code, _ptr(ws),
-            torch.cuda.current_stream().cuda_stream,
-        )
+        with torch.cuda.device(A.device):
+            lib = _lib or _load()
+            ws = _workspace(lib, _EDGE, M, N, B, code, A.device)
+            err = lib.smallchol_edge_factor_gain(
+                S_raw.data_ptr(), A.data_ptr(), R_table.data_ptr(), a.data_ptr(),
+                _ptr(diag_mask), mask_stride,
+                WcT.data_ptr(), gain.data_ptr(), B, M, N, int(round_bf16), code, _ptr(ws),
+                torch.cuda.current_stream(A.device).cuda_stream,
+            )
         _raise_on(name, err)
         edge_factor_gain.launches += 1
     return WcT, gain

@@ -14,7 +14,13 @@ kernel is held at every M of its register-resident route (1..12), at
 M = 13, 16, 25 and 32 of its warp route (one warp per matrix) and at M =
 33, 48, 64, 81 and 121 of its CTA route (one CTA per matrix), there with
 its workspace in shared memory and, forced, in global memory (where a
-larger M puts it).  Any M >= 1 is taken; M = 0 raises.
+larger M puts it).  Any M >= 1 is taken; M = 0 raises.  The CTA route's
+edge update (a factor kernel, a tiled Uᵀ·A, a gain kernel) is held at M =
+33 and 121 over ragged column tiles, every mask, the round trip and B = 1,
+5 and 192; its trace product (2 blocks per CTA) over ragged runs of
+blocks, each into NaN-filled memory; M = 177 takes the shared-memory form
+of the factorisations.  With two cards, each wrapper runs
+on the second while the first is current (one card skips that test).
 
 These tests need an NVIDIA Hopper card and the CUDA toolkit; elsewhere
 they skip.  They import no JAX, so they run where JAX is not installed:
@@ -481,6 +487,125 @@ def test_cta_route_covers_every_matrix(cuda, B, dtype):
         for g, w in zip(got, want):
             for gi, wi in zip(g, w if isinstance(w, tuple) else (w,)):
                 assert bool(torch.isfinite(gi).all()) and torch.equal(gi, wi)
+
+
+def poisoned(nbytes, cuda):
+    """Fill nbytes of the caching allocator's memory with NaN and free it at
+    once, so that the next outputs of that size reuse it: a matrix, block or
+    mission that no CTA writes shows as NaN."""
+    torch.full((nbytes // 8 + 1,), float("nan"), dtype=torch.float64, device=cuda)
+
+
+def kernel_both_workspaces(call, nbytes, cuda):
+    """call() with the CTA route's workspace in shared memory, then forced
+    into global memory, each time into NaN-filled memory."""
+    poisoned(nbytes, cuda)
+    shared = call()
+    poisoned(nbytes, cuda)
+    with kernels.cta_workspace_in_global_memory():
+        glob = call()
+    torch.cuda.synchronize()
+    return shared, glob
+
+
+#: edge_factor_gain's CTA route at M = 33: every column count (N = 1 and 37
+#: leave most of a 64-column tile empty, 1600 is the 1 m grid's 25 tiles),
+#: every mask, with and without the bf16 round trip
+EDGE_CTA_CASES = [(N, mask, rb) for N in (1, 37, 1600) for mask in ("none", "shared", "per")
+                  for rb in (False, True)]
+#: at M = 121, the 1 m continuous world's M (a plain call is ~20 s there)
+EDGE_CTA_121 = [(5, 1, "shared", False), (5, 37, "none", True), (1, 1600, "per", False),
+                (192, 1600, "per", False)]
+
+
+def edge_case(B, M, N, mask, round_bf16, cuda, seed):
+    S_raw, A, R, a, per = (t.to(cuda) for t in edge_inputs(B, M, N, torch.float32, seed=seed,
+                                                           clamp=B > 1))
+    m = {"none": None, "shared": per[0].contiguous(), "per": per}[mask]
+    args = (S_raw, A, R, a, m, round_bf16)
+    want = smallchol.edge_factor_gain(*args)
+    for got in kernel_both_workspaces(lambda: kernels.edge_factor_gain(*args),
+                                      A.numel() * A.element_size(), cuda):
+        assert same(got[0], want[0]) and same(got[1], want[1])
+    keep = torch.arange(B, device=cuda) != 1  # mission 1's clamped factor overflows
+    assert bool(torch.isfinite(want[0][keep]).all()) and bool(torch.isfinite(want[1][keep]).all())
+
+
+@pytest.mark.parametrize("N,mask,round_bf16", EDGE_CTA_CASES)
+def test_cta_edge_factor_gain_ragged_tiles(cuda, N, mask, round_bf16):
+    """M = 33, B = 5 (one mission clamped): Uᵀ·A's column tiles, the masks
+    and the round trip, bitwise, in shared and global workspace."""
+    edge_case(5, 33, N, mask, round_bf16, cuda, seed=N + len(mask) + round_bf16)
+
+
+@pytest.mark.parametrize("B", [1, 192])
+def test_cta_edge_factor_gain_batches(cuda, B):
+    """M = 33, N = 1600: one mission, and CMA-ES's 192 members."""
+    edge_case(B, 33, 1600, "per", False, cuda, seed=B)
+
+
+@pytest.mark.parametrize("B,N,mask,round_bf16", EDGE_CTA_121)
+def test_cta_edge_factor_gain_m121(cuda, B, N, mask, round_bf16):
+    """M = 121 (passes of 128 rows of Wcᵀ), ragged and whole column tiles."""
+    edge_case(B, 121, N, mask, round_bf16, cuda, seed=B + N)
+
+
+@pytest.mark.parametrize("outer,inner", [(1, 1), (1, 7), (1, 16), (1, 1600), (3, 7)])
+def test_cta_trace_product_slots(cuda, outer, inner):
+    """M = 81: the trace product's CTA takes 2 blocks consecutive in inner;
+    inner = 1 and 7 leave a slot empty, 16 fills eight CTAs, 1600 is the
+    1 m sweep's gather layout, (3, 7) puts a CTA's blocks across two o.
+    One block clamped; bitwise, in shared and global workspace."""
+    M, n = 81, outer * inner
+    S = random_spd(n, M, torch.float32, seed=inner)
+    S[n // 2, -1, -1] -= 2.0 * S[n // 2].diagonal().sum()
+    Sp = packed(S.to(cuda), outer, inner)
+    Gp = packed(random_spd(n, M, torch.float32, seed=inner + 1).to(cuda), outer, inner)
+    want = smallchol.spd_trace_product_packed(Sp, Gp)
+    assert bool(torch.isfinite(want).all())
+    for got in kernel_both_workspaces(lambda: kernels.spd_trace_product_packed(Sp, Gp),
+                                      4 * n, cuda):
+        assert torch.equal(got, want)
+
+
+def test_cta_route_past_the_register_tiles(cuda):
+    """M = 177, past the register tiles (M <= 176): the same wavefronts on
+    the packed triangle in shared memory, one thread per row; one clamped
+    pivot; bitwise, in shared and global workspace."""
+    S = random_spd(3, 177, torch.float32, seed=177)
+    S[1, -1, -1] -= 2.0 * S[1].diagonal().sum()
+    S = S.to(cuda)
+    want = smallchol.spd_inverse(S)
+    for got in kernel_both_workspaces(lambda: kernels.spd_inverse(S), S.numel() * 4, cuda):
+        assert same(got, want)
+
+
+@pytest.fixture(scope="module")
+def two_cards(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA cards (a launch on the inputs' card, not the current one)")
+    return torch.device("cuda:0"), torch.device("cuda:1")
+
+
+@pytest.mark.parametrize("M", [9, 81])
+def test_kernels_launch_on_their_inputs_card(two_cards, M):
+    """Each wrapper on tensors of cuda:1 while cuda:0 is current: the
+    kernels launch there, on cuda:1's current stream, bitwise the plain
+    version; cuda:0 stays current."""
+    card0, card1 = two_cards
+    S = random_spd(3, M, torch.float32, seed=M).to(card1)
+    Sp = packed(S, 1, 3)
+    edge = [t.to(card1) for t in edge_inputs(3, M, 50, torch.float32, seed=M)]
+    want = (smallchol.spd_inverse(S), smallchol.spd_inverse_factor(S),
+            smallchol.spd_trace_product_packed(Sp, Sp), smallchol.edge_factor_gain(*edge))
+    with torch.cuda.device(card0):
+        got = (kernels.spd_inverse(S), kernels.spd_inverse_factor(S),
+               kernels.spd_trace_product_packed(Sp, Sp), kernels.edge_factor_gain(*edge))
+        torch.cuda.synchronize(card1)
+        assert torch.cuda.current_device() == card0.index
+    for g, w in zip(got, want):
+        for gi, wi in zip(g if isinstance(g, tuple) else (g,), w if isinstance(w, tuple) else (w,)):
+            assert gi.device == card1 and torch.equal(gi, wi)
 
 
 def test_edge_factor_gain_past_the_register_route_takes_the_cta_route(cuda):
