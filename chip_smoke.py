@@ -184,10 +184,11 @@ Phases, each of which fails the run on a failed check (none is caught):
    float32 and float64.
 15. quality (allowance ``QUALITY_ALLOWANCE_S``): (a) the greedy mission on
    example.yaml's field at 2 m (``FINE_GRID``: M = 25, A = 800, N = 400, the
-   kernels' large-M route) at B = ``FINE_B`` for ``FINE_STEPS`` steps with
+   kernels' warp route) at B = ``FINE_B`` for ``FINE_STEPS`` steps with
    the kernels and with their plain versions from one state and noise:
    actions identical, beliefs bitwise equal, ``spd_inverse`` and
-   ``spd_trace_product`` launched; (b) the quality tool's evaluation
+   ``spd_trace_product`` launched; the step's ms and the trace product's
+   within it (CUDA events around its launches); (b) the quality tool's evaluation
    (``tools/quality_vs_runtime.evaluate``) on the committed worlds
    (runs/quality_torch/worlds_s12345_b32.npz, the JAX script's) at the
    committed JAX reference's settings (runs/quality_torch/jax_reference.json:
@@ -203,14 +204,16 @@ Phases, each of which fails the run on a failed check (none is caught):
    ``SNAPSHOT_STEPS`` steps, B = 32, the committed worlds): its deploy row
    equals the quality tool's row for the same planner, worlds, steps and
    seed, both under deterministic algorithms.  Phase 2 also holds the four
-   kernels' large-M route (M = 13..32, one warp per matrix) at M = 13, 25
-   and 32 in float32 and float64: ``spd_inverse`` at (4096, M, M), on
-   clamped pivots and (M = 25) on a fine-grid commit's S;
-   ``spd_trace_product`` on the fine grid's two sweep launches at B = 256
-   ((256, 325, 400), (400, 325, 256)) and on (256, T, 400) random blocks for
-   M = 13 and 32; ``spd_inverse_factor`` at (1024, M, M);
-   ``edge_factor_gain`` at (1024, M, 400) with a per-mission mask (M = 25: a
-   fine-grid descent step's inputs); and times each at M = 25 as at M = 9.
+   kernels' warp route (M = 13..32) at M = 13, 25 and 32 in float32 and
+   float64: ``spd_inverse`` at (4096, M, M), on clamped pivots and (M = 25)
+   on a fine-grid commit's S; ``spd_trace_product`` on the fine grid's two
+   sweep launches at B = 256 ((256, 325, 400), (400, 325, 256)), on (256, T,
+   400) random blocks for M = 13 and 32 and on a ragged (3, T, 33) launch
+   with each kind of kernel (runtime-M, unrolled); ``spd_inverse_factor`` at
+   (1024, M, M); ``edge_factor_gain`` at (1024, M, 400) with a per-mission
+   mask (M = 25: a fine-grid descent step's inputs); times each at M = 25
+   as at M = 9, and ``spd_inverse`` (4096, M, M) and the sweep pair with
+   each kind forced at M = 13, 25 and 32 in float32.
 16. the 1 m grid (allowance ``FINE_1M_ALLOWANCE_S``): example.yaml's field
    on ``FINE_1M_GRID`` (40 x 40 cells of 1 m: lattice M = 81, continuous
    M = 121, A = 3200, N = 1600; the kernels' CTA route): (a) greedy with
@@ -662,6 +665,8 @@ def kernel_phase(gen: torch.Generator) -> list:
     for r in rows:
         r["m_range"] = "any M >= 1"
         r["m25"] = large[r["name"]]["m25"]
+        if "kinds" in large[r["name"]]:  # K1 and K2 with each kind of warp-route kernel
+            r["warp_kinds"] = large[r["name"]]["kinds"]
         r["large_m_checks"] = large[r["name"]]["checks"]
         r["m81_m121"] = cta[r["name"]]["rows"]
         r["cta_m_checks"] = cta[r["name"]]["checks"]
@@ -1042,16 +1047,20 @@ def random_edge_inputs(B: int, m: int, n: int, dtype: torch.dtype, gen: torch.Ge
 
 
 def large_m_rows(gen: torch.Generator) -> dict:
-    """The large-M route (M = 13..32, one warp per matrix) bitwise against
-    the plain versions at M = 13, 25 and 32 in float32 and float64, then
-    timed at M = 25 on FINE_GRID's shapes: ``spd_inverse`` at (4096, M, M)
-    and on a commit's S of the fine grid (B = 256), ``spd_trace_product``
-    on the fine grid's two sweep launches at B = 256 ((256, 325, 400)
-    gather, (400, 325, 256) dense; random blocks at (256, T, 400) for M = 13
-    and 32), ``spd_inverse_factor`` at (1024, M, M), ``edge_factor_gain`` at
-    (1024, M, 400) with a per-mission mask (at M = 25 one descent step's
-    inputs on the fine grid).  Returns per kernel name its checks and its M
-    = 25 times, bound and library call (float32)."""
+    """The warp route (M = 13..32) bitwise against the plain versions at M
+    = 13, 25 and 32 in float32 and float64, then timed at M = 25 on
+    FINE_GRID's shapes: ``spd_inverse`` at (4096, M, M) and on a commit's S
+    of the fine grid (B = 256), ``spd_trace_product`` on the fine grid's two
+    sweep launches at B = 256 ((256, 325, 400) gather, (400, 325, 256)
+    dense; random blocks at (256, T, 400) for M = 13 and 32, and a ragged
+    (3, T, 33) launch with each kind of kernel), ``spd_inverse_factor`` at
+    (1024, M, M), ``edge_factor_gain`` at (1024, M, 400) with a per-mission
+    mask (at M = 25 one descent step's inputs on the fine grid).  Then
+    ``spd_inverse`` at (4096, M, M) and ``spd_trace_product`` on the sweep
+    pair's shapes, at M = 13, 25 and 32, with each kind of
+    kernel forced (``kernels.warp_route``: runtime-M, unrolled).  Returns
+    per kernel name its checks, its M = 25 times, bound and library call
+    (float32), and for K1 and K2 the times of both kinds."""
     log("  large-M route: M = 13, 25, 32 in float32 and float64; M = 25 on the "
         f"{FINE_GRID['x_dim']}x{FINE_GRID['y_dim']} grid at resolution {FINE_GRID['resolution']}")
     out = {name: {"checks": []} for name in
@@ -1103,6 +1112,13 @@ def large_m_rows(gen: torch.Generator) -> dict:
                 record("spd_trace_product", f"{tuple(Sp.shape)} {tag}",
                        kernels.spd_trace_product_packed(Sp, Gp),
                        smallchol.spd_trace_product_packed(Sp, Gp))
+            Sr = packed(random_spd(99, gen, m, dtype), 3, 33)
+            Gr = packed(random_spd(99, gen, m, dtype), 3, 33)
+            want = smallchol.spd_trace_product_packed(Sr, Gr)
+            for kind in kernels.WARP_ROUTES:
+                with kernels.warp_route(kind):
+                    got = kernels.spd_trace_product_packed(Sr, Gr)
+                record("spd_trace_product", f"ragged (3, T, 33) {tag} {kind}", got, want)
             for got, want, part in zip(kernels.edge_factor_gain(*edge),
                                        smallchol.edge_factor_gain(*edge), ("WcT", "gain")):
                 record("edge_factor_gain", f"{tuple(edge[1].shape)} {tag} {part}", got, want)
@@ -1149,7 +1165,51 @@ def large_m_rows(gen: torch.Generator) -> dict:
             f"{t['plain_ms']:.3f} ms, library {t['library_ms']:.3f} ms, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}), {t['bound_ms'] / t['ms']:.1%} of it")
         v["max_abs_err"] = max(e["max_abs_err"] for c in v["checks"] for e in c.values())
+    out["spd_inverse"]["kinds"], out["spd_trace_product"]["kinds"] = warp_kind_times(sweep, gen)
     return out
+
+
+def warp_kind_times(sweep: list, gen: torch.Generator) -> tuple:
+    """K1 at (4096, M, M) and K2 on the 2 m sweep pair's shapes ((256, T,
+    400) + (400, T, 256); at M = 25 the recorded sweep's blocks) with each
+    kind of warp-route kernel forced, at M = 13, 25 and 32 in float32
+    (device ms, CUDA graph), the bound and one plain and one library call;
+    scripts/time_torch_warp_route.py times every M in both dtypes."""
+    inv, trace = {}, {}
+    for m in LARGE_M_CHECKED:
+        S = random_spd(REPLAN_B, gen, m)
+        if m == 25:
+            pair = sweep
+        else:
+            n = FINE_B * 400
+            pair = [(packed(random_spd(n, gen, m), o, i), packed(random_spd(n, gen, m), o, i))
+                    for o, i in ((FINE_B, 400), (400, FINE_B))]
+        k1, k2 = {}, {}
+        for kind in kernels.WARP_ROUTES:
+            with kernels.warp_route(kind):
+                k1[kind] = graph_ms(lambda: kernels.spd_inverse(S), 50)
+                k2[kind] = graph_ms(
+                    lambda: [kernels.spd_trace_product_packed(a, b) for a, b in pair], 4)
+        blocks = 2 * FINE_B * 400
+        t = smallchol.packed_size(m)
+        k1["bound_ms"] = bound(2 * S.numel() * 4, REPLAN_B * inverse_ops(m))[0]
+        k2["bound_ms"] = bound((2 * t + 1) * blocks * 4, blocks * trace_ops(m))[0]
+        k1["plain_ms"] = plain_once(lambda: smallchol.spd_inverse(S))[1]
+        k2["plain_ms"] = plain_once(
+            lambda: [smallchol.spd_trace_product_packed(a, b) for a, b in pair])[1]
+        k1["library_ms"] = cuda_ms(lambda: torch.cholesky_inverse(torch.linalg.cholesky(S)), 5)
+        fulls = [(unpacked(a), unpacked(b)) for a, b in pair]
+        k2["library_ms"] = cuda_ms(
+            lambda: [torch.cholesky_solve(G, torch.linalg.cholesky(S_))
+                     .diagonal(dim1=-2, dim2=-1).sum(-1) for S_, G in fulls], 2)
+        del fulls, pair
+        tag = f"M={m} float32"
+        inv[tag], trace[tag] = k1, k2
+        for name, k in (("spd_inverse (4096, M, M)", k1), ("spd_trace_product pair", k2)):
+            log(f"  {name} {tag}: runtime-M {k['runtime_m']:.4f} ms, unrolled "
+                f"{k['unrolled']:.4f} ms device; bound {k['bound_ms']:.4f}, plain "
+                f"{k['plain_ms']:.1f}, library {k['library_ms']:.3f} ms")
+    return inv, trace
 
 
 def plain_once(fn):
@@ -2918,12 +2978,29 @@ def fine_grid_greedy(gen: torch.Generator, world=None, B: int = FINE_B,
     state0 = world.init_state(B, gen)
     noise = torch.randn((steps, B, m), generator=gen, device="cuda")
     torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    with_kernels = planner.run(B, steps, init_state=state0, noise=noise)
-    torch.cuda.synchronize()
-    kernel_s = time.perf_counter() - t0
-    launches = kernels.launch_counts()
+    launch = kernels.spd_trace_product_packed
+    trace_events = []
+
+    def timed_trace(S_packed, G_packed):  # CUDA events around each K2 launch
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = launch(S_packed, G_packed)
+        end.record()
+        trace_events.append((start, end))
+        return out
+
+    kernels.spd_trace_product_packed = timed_trace  # counts its launches while bound here
+    try:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with_kernels = planner.run(B, steps, init_state=state0, noise=noise)
+        torch.cuda.synchronize()
+        kernel_s = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    finally:
+        kernels.spd_trace_product_packed = launch
+        launch.launches = timed_trace.launches  # the wrapper's own counter takes the run's count
+    trace_ms = sum(s_.elapsed_time(e_) for s_, e_ in trace_events) / steps
     t0 = time.perf_counter()
     with plain_versions():
         plain = planner.run(B, steps, init_state=state0, noise=noise)
@@ -2941,12 +3018,13 @@ def fine_grid_greedy(gen: torch.Generator, world=None, B: int = FINE_B,
     check(bool(np.all(np.diff(unc) < 0)), "fine grid: uncertainty does not fall step over step")
     log(f"  fine grid (M = {m}, A = {world.num_actions}, N = {world.H.shape[2]}), B = "
         f"{B} x {steps} steps: actions identical, beliefs bitwise equal; launches "
-        f"{launches}; {kernel_s / steps * 1e3:.1f} ms per step with the kernels, "
+        f"{launches}; {kernel_s / steps * 1e3:.1f} ms per step with the kernels "
+        f"(spd_trace_product {trace_ms:.3f} ms of it, CUDA events around its launches), "
         f"{plain_s / steps * 1e3:.1f} with the plain versions; mean uncertainty "
         f"{np.array2string(unc, precision=3)}")
     return {"batch": B, "steps": steps, "actions_identical": True,
             "beliefs_bitwise_equal": True, "launches": launches,
-            "ms_per_step": kernel_s / steps * 1e3,
+            "ms_per_step": kernel_s / steps * 1e3, "trace_product_ms_per_step": trace_ms,
             "plain_ms_per_step": plain_s / steps * 1e3, "mean_uncertainty": unc.tolist()}
 
 

@@ -134,7 +134,22 @@
 // entries (`inner` apart) straight from global memory; edge_factor_gain
 // reads A straight from global memory, the lanes on consecutive columns.
 // A simple design, not a fast one: at M = 25 a warp does ~M^2 dependent
-// steps with most lanes idle.
+// steps with most lanes idle.  So spd_inverse and spd_trace_product have a
+// second kind of kernel there, unrolled for each M (a template parameter,
+// so register arrays and shared offsets are compile-time), which the
+// launch takes wherever it ran faster on the H100 (kUnrolledMaxM):
+//   spd_inverse_rows_kernel: one warp per matrix, lane i keeping row i of L
+//     and lane c column c of L^-1 in registers, another lane's row or
+//     column read by 16-byte broadcasts from a shared copy, S staged by
+//     cp.async, S^-1 stored by 16-byte stores.  Bound at (4096, 25, 25),
+//     f32: 20 MB moved, 6.1 us; it runs ~4x that, on its M-step chains.
+//   spd_trace_product_lanes_kernel: one lane per block, a warp on 32
+//     consecutive blocks, so every load of S and G is coalesced; the lane's
+//     packed triangle in shared memory (41.6 KB a warp at M = 25 in f32, so
+//     5 warps per SM), factored, inverted and multiplied in place two rows
+//     or columns per step.  Bound on the 2 m sweep's 204,800 blocks, f32:
+//     533 MB moved, 0.159 ms; it runs ~7x that, each lane's dependent chains
+//     with too few warps to hide them.
 //
 // The CTA route (M >= 33, up to kMaxCtaM; the same four entry points, and
 // edge_factor_gain at M <= 12 where the register route's shared slices of
@@ -839,6 +854,386 @@ edge_factor_gain_large_kernel(const T* __restrict__ s_raw, const T* __restrict__
 #pragma unroll
   for (int w = 16; w >= 1; w >>= 1) g = g + __shfl_xor_sync(kFullMask, g, w);
   if (lane == 0) gain[b] = g;
+}
+
+// ---------------------------------------------------------------- warp route, unrolled
+
+// elements by which a staging buffer starts past a 16-byte boundary, so
+// that it agrees with p modulo 16 bytes
+template <typename T>
+__device__ __forceinline__ int align_offset(const void* p) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(p) & 15) / sizeof(T));
+}
+
+// count elements from global src to shared dst, which agree modulo 16 bytes,
+// by the warp's lanes as asynchronous copies: 16-byte copies over the
+// aligned middle, one element each before and after it
+template <typename T>
+__device__ __forceinline__ void warp_stage_async(T* dst, const T* src, int count, int lane) {
+  constexpr int kVec = 16 / sizeof(T);
+  int head = (kVec - align_offset<T>(src)) % kVec;
+  head = head < count ? head : count;
+  const int vecs = (count - head) / kVec;
+  const int rest = head + vecs * kVec;
+  if (lane < head) cp_async_small<sizeof(T)>(dst + lane, src + lane);
+  for (int k = lane; k < vecs; k += 32) cp_async_16(dst + head + k * kVec, src + head + k * kVec);
+  for (int k = rest + lane; k < count; k += 32) cp_async_small<sizeof(T)>(dst + k, src + k);
+}
+
+// count elements from shared src to global dst by the warp's lanes: 16-byte
+// stores over the aligned middle where the two agree modulo 16 bytes, else
+// one element each
+template <typename T>
+__device__ __forceinline__ void warp_store(T* dst, const T* src, int count, int lane) {
+  constexpr int kVec = 16 / sizeof(T);
+  int head = count;
+  if (align_offset<T>(dst) == align_offset<T>(src)) {
+    head = (kVec - align_offset<T>(dst)) % kVec;
+    head = head < count ? head : count;
+  }
+  const int vecs = (count - head) / kVec;
+  const int rest = head + vecs * kVec;
+  for (int k = lane; k < head; k += 32) dst[k] = src[k];
+  for (int k = lane; k < vecs; k += 32) {
+    reinterpret_cast<float4*>(dst + head)[k] = reinterpret_cast<const float4*>(src + head)[k];
+  }
+  for (int k = rest + lane; k < count; k += 32) dst[k] = src[k];
+}
+
+// the row stride of spd_inverse_rows_kernel's L and L^-1 in shared memory:
+// M rounded up to 4, so every row starts 16-byte aligned
+__host__ __device__ constexpr int rows_ld(int m) { return (m + 3) / 4 * 4; }
+
+// v = p[0..3], p 16-byte aligned in shared memory (a broadcast when the
+// warp's lanes read one address)
+template <typename T>
+__device__ __forceinline__ void load4(const T* p, T (&v)[4]) {
+  if constexpr (sizeof(T) == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  } else {
+    const double2 a = reinterpret_cast<const double2*>(p)[0];
+    const double2 b = reinterpret_cast<const double2*>(p)[1];
+    v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+  }
+}
+
+// -acc / d for a pivot d (positive, or NaN).  A zero dividend sends the
+// division down its slow path, and most entries of L and L^-1 are zeros on
+// sparse S (the 2 m sweep's); where acc is a zero the quotient is -acc
+// itself, so a zero is divided as 1 and the result replaced, without a
+// branch
+template <typename T>
+__device__ __forceinline__ T neg_quotient(T acc, T d) {
+  const bool zero = acc == T(0);
+  const T q = -(zero ? T(1) : acc) / d;
+  return zero && d == d ? -acc : q;
+}
+
+// S^-1 of one M x M matrix per warp (13 <= M <= 32), M unrolled.  The
+// matrix is staged by cp.async (one commit, one wait); then
+//   Cholesky, column by column: lane i keeps row i of L in registers and
+//     writes L[i][j] to a shared copy of L once column j is done; column j
+//     reads row j of that copy by 16-byte broadcast loads; the pivot comes
+//     by shuffle from lane j;
+//   forward substitution: lane c keeps column c of L^-1 in registers and
+//     runs down it, row i of L by broadcast loads; every sum starts at -0
+//     (-0 + x = x), so the lanes' different first terms need no branch;
+//   S^-1: the lanes write their columns of L^-1 over the copy of L; lane j
+//     forms column j of S^-1, column i of L^-1 by broadcast loads, and
+//     writes (i, j) and (j, i) over the staged matrix, which the warp then
+//     stores with 16-byte stores.
+// Each sum in the plain version's order.  One warp per CTA, so a small
+// batch (B = 256 on the 2 m grid's commit) spreads over the SMs.
+template <int M, typename T>
+__global__ void __launch_bounds__(32)
+spd_inverse_rows_kernel(const T* __restrict__ s, T* __restrict__ out) {
+  constexpr int kMM = M * M;
+  constexpr int kLd = rows_ld(M);
+  __shared__ __align__(16) T smem[M * kLd + kMM + 16 / sizeof(T)];
+  T* lsh = smem;  // L, then L^-1 transposed (column c at lsh[c * kLd])
+  const int lane = static_cast<int>(threadIdx.x);
+  const int64_t off = static_cast<int64_t>(blockIdx.x) * kMM;
+  T* buf = smem + M * kLd + align_offset<T>(s + off);
+  warp_stage_async(buf, s + off, kMM, lane);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncwarp();
+
+  const int row = lane < M ? lane : M - 1;  // lanes past M repeat row M - 1
+  T Lrow[M];
+#pragma unroll
+  for (int j = 0; j < M; ++j) {
+    T acc = buf[row * M + j];
+#pragma unroll
+    for (int k4 = 0; k4 < j; k4 += 4) {
+      T v[4];
+      load4(lsh + j * kLd + k4, v);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (k4 + u < j) acc = acc - Lrow[k4 + u] * v[u];
+      }
+    }
+    const T d = sqrt(clamp_pivot(__shfl_sync(kFullMask, acc, j)));
+    const T inv_d = T(1) / d;
+    Lrow[j] = row == j ? d : (row > j ? acc * inv_d : T(0));
+    if (lane < M) lsh[row * kLd + j] = Lrow[j];
+    __syncwarp();
+  }
+
+  T Lic[M];  // column `row` of L^-1: Lic[i] = L^-1[i][row] for i >= row
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    T acc = T(-0.0);
+    T lii = T(0);
+#pragma unroll
+    for (int k4 = 0; k4 <= i; k4 += 4) {
+      T v[4];
+      load4(lsh + i * kLd + k4, v);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int k = k4 + u;
+        if (k < i && k >= row) acc = acc + v[u] * Lic[k];
+        if (k == i) lii = v[u];
+      }
+    }
+    Lic[i] = row == i ? T(1) / lii : neg_quotient(acc, lii);
+  }
+
+  __syncwarp();  // every lane has read L and S
+  if (lane < M) {
+#pragma unroll
+    for (int k = 0; k < M; ++k) {
+      if (k >= row) lsh[row * kLd + k] = Lic[k];
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    T acc = T(-0.0);
+#pragma unroll
+    for (int k4 = i / 4 * 4; k4 < M; k4 += 4) {
+      T v[4];
+      load4(lsh + i * kLd + k4, v);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int k = k4 + u;
+        if (k >= i && k < M) acc = acc + v[u] * Lic[k];
+      }
+    }
+    if (lane <= i) {
+      buf[i * M + lane] = acc;
+      buf[lane * M + i] = acc;
+    }
+  }
+  __syncwarp();
+  warp_store(out + off, buf, kMM, lane);
+}
+
+// The lane-per-block trace product's three passes over a lane's packed
+// triangle x (entry e at x[e * 32]), each on R = 1 or 2 rows or columns at
+// a time.
+
+// rows i .. i + R - 1 of L in place over S, rows 0 .. i - 1 done, each
+// entry as `cholesky` forms it: the rows in registers, L[j][k] from shared;
+// inv_d[j] = 1 / L[j][j] for j < i on entry, for j < i + R on return
+template <int M, int R, typename T>
+__device__ __forceinline__ void lanes_cholesky_rows(T* x, int i, T (&inv_d)[M]) {
+  T* xr[R];
+  T r[R][M];
+#pragma unroll
+  for (int q = 0; q < R; ++q) xr[q] = x + ((i + q) * (i + q + 1) / 2) * 32;
+#pragma unroll
+  for (int j = 0; j < M - 1; ++j) {
+    if (j < i) {
+      T a[R];
+#pragma unroll
+      for (int q = 0; q < R; ++q) a[q] = xr[q][j * 32];
+#pragma unroll
+      for (int k = 0; k < j; ++k) {
+        const T l = x[(j * (j + 1) / 2 + k) * 32];
+#pragma unroll
+        for (int q = 0; q < R; ++q) a[q] = a[q] - r[q][k] * l;
+      }
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        r[q][j] = a[q] * inv_d[j];
+        xr[q][j * 32] = r[q][j];
+      }
+    }
+  }
+  T acc = xr[0][i * 32];
+#pragma unroll
+  for (int k = 0; k < M - 1; ++k) {
+    if (k < i) acc = acc - r[0][k] * r[0][k];
+  }
+  const T d0 = sqrt(clamp_pivot(acc));
+  xr[0][i * 32] = d0;
+  const T inv0 = T(1) / d0;
+  if constexpr (R == 2) {  // L[i + 1][i], then row i + 1's pivot
+    T a = xr[1][i * 32];
+#pragma unroll
+    for (int k = 0; k < M - 1; ++k) {
+      if (k < i) a = a - r[1][k] * r[0][k];
+    }
+    const T l10 = a * inv0;
+    xr[1][i * 32] = l10;
+    T acc1 = xr[1][(i + 1) * 32];
+#pragma unroll
+    for (int k = 0; k < M - 1; ++k) {
+      if (k < i) acc1 = acc1 - r[1][k] * r[1][k];
+    }
+    acc1 = acc1 - l10 * l10;
+    const T d1 = sqrt(clamp_pivot(acc1));
+    xr[1][(i + 1) * 32] = d1;
+    const T inv1 = T(1) / d1;
+#pragma unroll
+    for (int q = 0; q < M; ++q) inv_d[q] = q == i ? inv0 : (q == i + 1 ? inv1 : inv_d[q]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < M; ++q) inv_d[q] = q == i ? inv0 : inv_d[q];
+  }
+}
+
+// columns c .. c + R - 1 of L^-1 in place over L, columns 0 .. c - 1 done,
+// as `inverse_factor`: column c of L^-1 reads only L[i][k] with k >= c, the
+// diagonals below it and itself (in registers), so nothing is read after it
+// is overwritten.  With R = 2, row i's entries of both columns are formed
+// before either is written: column c reads L[i][c + 1], which column c + 1
+// overwrites.
+template <int M, int R, typename T>
+__device__ __forceinline__ void lanes_invert_columns(T* x, int c) {
+  T col[R][M];  // col[q][dd] = L^-1[c + q + dd][c + q]
+  T* xc = x + (c * (c + 1) / 2 + c) * 32;
+  col[0][0] = T(1) / xc[0];
+  xc[0] = col[0][0];
+#pragma unroll
+  for (int dd = 1; dd < M; ++dd) {
+    if (c + dd < M) {
+      const int i = c + dd;
+      T* xi = x + (i * (i + 1) / 2 + c) * 32;  // L[i][c + d] at xi[d * 32]
+      T acc0 = xi[0] * col[0][0];
+      T acc1 = T(0);
+      if constexpr (R == 2) {
+        if (dd >= 2) acc1 = xi[32] * col[1][0];
+      }
+#pragma unroll
+      for (int d = 1; d < dd; ++d) {
+        const T l = xi[d * 32];
+        acc0 = acc0 + l * col[0][d];
+        if constexpr (R == 2) {
+          if (d >= 2) acc1 = acc1 + l * col[1][d - 1];
+        }
+      }
+      const T lii = xi[dd * 32];
+      col[0][dd] = neg_quotient(acc0, lii);
+      xi[0] = col[0][dd];
+      if constexpr (R == 2) {
+        const int r = dd == 1 ? 0 : dd - 1;
+        col[1][r] = dd == 1 ? T(1) / lii : neg_quotient(acc1, lii);
+        xi[32] = col[1][r];
+      }
+    }
+  }
+}
+
+// the terms (2 - d_ij) S^-1[i][j] G[i][j] of columns j .. j + R - 1, each
+// written over L^-1[i][j]: entry (i, j) reads column j of L^-1 (in
+// registers) and column i >= j (shared), which is overwritten only later
+// or, for i = j + 1 with R = 2, after both entries of row i are formed
+template <int M, int R, typename T>
+__device__ __forceinline__ void lanes_term_columns(T* x, const T* gb, int64_t inner, int j) {
+  T col[R][M];   // col[q][k] = L^-1[k][j + q], k >= j + q
+  T gcol[R][M];  // gcol[q][i] = G[i][j + q], i >= j + q
+#pragma unroll
+  for (int k = 0; k < M; ++k) {
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      if (k >= j + q) {
+        col[q][k] = x[(k * (k + 1) / 2 + j + q) * 32];
+        gcol[q][k] = __ldg(gb + (k * (k + 1) / 2 + j + q) * inner);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    if (i >= j) {
+      const T dii = x[(i * (i + 1) / 2 + i) * 32];
+      T acc[R];
+#pragma unroll
+      for (int q = 0; q < R; ++q) acc[q] = dii * col[q][i];
+#pragma unroll
+      for (int k = i + 1; k < M; ++k) {
+        const T l = x[(k * (k + 1) / 2 + i) * 32];
+#pragma unroll
+        for (int q = 0; q < R; ++q) acc[q] = acc[q] + l * col[q][k];
+      }
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        if (i >= j + q) {
+          T term = acc[q] * gcol[q][i];
+          if (i != j + q) term = term + term;
+          x[(i * (i + 1) / 2 + j + q) * 32] = term;
+        }
+      }
+    }
+  }
+}
+
+// tr(S^-1 G) of 32 consecutive blocks t per warp, one lane per block
+// (13 <= M <= 32), M unrolled.  Entry e of a warp's blocks is one coalesced
+// load from the entries-major layout.  Each lane runs its block's whole
+// chain on its own packed triangle in shared memory, interleaved by lane
+// (entry e of lane l at e * 32 + l: a warp's 32 accesses to one entry hit
+// 32 banks), each sum in the plain version's order:
+//   S's triangle is staged by cp.async, one element each;
+//   Cholesky two rows at a time in place: the rows in registers, L[j][k]
+//     from shared, two chains per step (lanes_cholesky_rows);
+//   L^-1 two columns at a time in place (lanes_invert_columns);
+//   S^-1 two columns at a time, each entry's term written over L^-1[i][j]
+//     (lanes_term_columns);
+//   the terms added in packed order.
+// The outer loops (rows, columns) run at run time with one uniform guard
+// per entry; every inner loop unrolls to register indices and immediate
+// shared offsets.  Two rows or columns per step give each step two
+// independent chains that share their shared-memory loads.
+template <int M, typename T>
+__global__ void __launch_bounds__(32)
+spd_trace_product_lanes_kernel(const T* __restrict__ s, const T* __restrict__ g,
+                               T* __restrict__ out, int64_t outer, int64_t inner) {
+  constexpr int kT = M * (M + 1) / 2;
+  extern __shared__ __align__(16) unsigned char lanes_smem[];
+  const int lane = static_cast<int>(threadIdx.x);
+  const int64_t n = outer * inner;
+  const int64_t mine = static_cast<int64_t>(blockIdx.x) * 32 + lane;
+  const int64_t t = mine < n ? mine : n - 1;  // lanes past the end repeat the last block
+  const int64_t o = t / inner;
+  const int64_t base = o * (kT - 1) * inner + t;  // (o*T)*inner + (t - o*inner)
+  T* x = reinterpret_cast<T*>(lanes_smem) + lane;  // entry e at x[e * 32]
+  {
+    const T* src = s + base;
+#pragma unroll 8
+    for (int e = 0; e < kT; ++e, src += inner) cp_async_small<sizeof(T)>(x + e * 32, src);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();  // each lane reads only what it copied
+
+  T inv_d[M] = {};
+#pragma unroll 1
+  for (int i = 0; i + 1 < M; i += 2) lanes_cholesky_rows<M, 2>(x, i, inv_d);
+  if (M % 2 == 1) lanes_cholesky_rows<M, 1>(x, M - 1, inv_d);
+#pragma unroll 1
+  for (int c = 0; c + 1 < M; c += 2) lanes_invert_columns<M, 2>(x, c);
+  if (M % 2 == 1) lanes_invert_columns<M, 1>(x, M - 1);
+  const T* gb = g + base;
+#pragma unroll 1
+  for (int j = 0; j + 1 < M; j += 2) lanes_term_columns<M, 2>(x, gb, inner, j);
+  if (M % 2 == 1) lanes_term_columns<M, 1>(x, gb, inner, M - 1);
+
+  T total = x[0];
+#pragma unroll 8
+  for (int e = 1; e < kT; ++e) total = total + x[e * 32];
+  if (mine < n) out[mine] = total;
 }
 
 // a kernel that needs more than 48 KB of dynamic shared memory is allowed
@@ -1925,6 +2320,161 @@ int launch_edge_large(const void* s, const void* a_blk, const void* r, const voi
   return static_cast<int>(cudaGetLastError());
 }
 
+}  // namespace
+
+// The warp route's unrolled kernels, one pair of kernels per M and dtype,
+// would make ptxas, which compiles one source's kernels one after another,
+// take most of a minute.  So ops/kernels.py compiles this source in parts,
+// all at once: SMALLCHOL_PART = 0 holds every other kernel and the C
+// interface and takes these launchers from the other parts, part p >= 1
+// instantiates them for its range of M (below).  Compiled without
+// SMALLCHOL_PART, the source holds everything.
+namespace smallchol_unrolled {
+
+template <int M, typename T>
+int launch_inverse_rows(const void* s, void* out, int64_t n, cudaStream_t stream) {
+  spd_inverse_rows_kernel<M, T><<<static_cast<unsigned>(n), 32, 0, stream>>>(
+      static_cast<const T*>(s), static_cast<T*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int M, typename T>
+int launch_trace_lanes(const void* s, const void* g, void* out, int64_t outer, int64_t inner,
+                       cudaStream_t stream) {
+  const size_t bytes = static_cast<size_t>(M * (M + 1) / 2) * 32 * sizeof(T);
+  auto kernel = spd_trace_product_lanes_kernel<M, T>;
+  if (int err = allow_shared(kernel, bytes)) return err;
+  kernel<<<static_cast<unsigned>((outer * inner + 31) / 32), 32, bytes, stream>>>(
+      static_cast<const T*>(s), static_cast<const T*>(g), static_cast<T*>(out), outer, inner);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace smallchol_unrolled
+
+#define SMALLCHOL_UNROLLED(KEYWORD, M)                                                        \
+  KEYWORD int smallchol_unrolled::launch_inverse_rows<M, float>(const void*, void*, int64_t,  \
+                                                                cudaStream_t);                \
+  KEYWORD int smallchol_unrolled::launch_inverse_rows<M, double>(const void*, void*, int64_t, \
+                                                                 cudaStream_t);               \
+  KEYWORD int smallchol_unrolled::launch_trace_lanes<M, float>(                               \
+      const void*, const void*, void*, int64_t, int64_t, cudaStream_t);                       \
+  KEYWORD int smallchol_unrolled::launch_trace_lanes<M, double>(                              \
+      const void*, const void*, void*, int64_t, int64_t, cudaStream_t);
+
+// the parts' ranges of M, about equal in compile time (the code grows as M^2)
+// part p >= 1 instantiates the launchers for its range of M, about equal
+// in compile time (the code grows as M^2); part 0 declares them all
+#if !defined(SMALLCHOL_PART)
+#define SMALLCHOL_PART_HAS(P) 1
+#else
+#define SMALLCHOL_PART_HAS(P) (SMALLCHOL_PART == (P))
+#endif
+#if SMALLCHOL_PART_HAS(1)
+SMALLCHOL_UNROLLED(template, 13) SMALLCHOL_UNROLLED(template, 14)
+SMALLCHOL_UNROLLED(template, 15) SMALLCHOL_UNROLLED(template, 16)
+SMALLCHOL_UNROLLED(template, 17)
+#endif
+#if SMALLCHOL_PART_HAS(2)
+SMALLCHOL_UNROLLED(template, 18) SMALLCHOL_UNROLLED(template, 19)
+SMALLCHOL_UNROLLED(template, 20) SMALLCHOL_UNROLLED(template, 21)
+#endif
+#if SMALLCHOL_PART_HAS(3)
+SMALLCHOL_UNROLLED(template, 22) SMALLCHOL_UNROLLED(template, 23)
+SMALLCHOL_UNROLLED(template, 24)
+#endif
+#if SMALLCHOL_PART_HAS(4)
+SMALLCHOL_UNROLLED(template, 25) SMALLCHOL_UNROLLED(template, 26)
+SMALLCHOL_UNROLLED(template, 27)
+#endif
+#if SMALLCHOL_PART_HAS(5)
+SMALLCHOL_UNROLLED(template, 28) SMALLCHOL_UNROLLED(template, 29)
+SMALLCHOL_UNROLLED(template, 30)
+#endif
+#if SMALLCHOL_PART_HAS(6)
+SMALLCHOL_UNROLLED(template, 31) SMALLCHOL_UNROLLED(template, 32)
+#endif
+
+#if !defined(SMALLCHOL_PART) || SMALLCHOL_PART == 0
+#if defined(SMALLCHOL_PART)
+SMALLCHOL_UNROLLED(extern template, 13) SMALLCHOL_UNROLLED(extern template, 14)
+SMALLCHOL_UNROLLED(extern template, 15) SMALLCHOL_UNROLLED(extern template, 16)
+SMALLCHOL_UNROLLED(extern template, 17) SMALLCHOL_UNROLLED(extern template, 18)
+SMALLCHOL_UNROLLED(extern template, 19) SMALLCHOL_UNROLLED(extern template, 20)
+SMALLCHOL_UNROLLED(extern template, 21) SMALLCHOL_UNROLLED(extern template, 22)
+SMALLCHOL_UNROLLED(extern template, 23) SMALLCHOL_UNROLLED(extern template, 24)
+SMALLCHOL_UNROLLED(extern template, 25) SMALLCHOL_UNROLLED(extern template, 26)
+SMALLCHOL_UNROLLED(extern template, 27) SMALLCHOL_UNROLLED(extern template, 28)
+SMALLCHOL_UNROLLED(extern template, 29) SMALLCHOL_UNROLLED(extern template, 30)
+SMALLCHOL_UNROLLED(extern template, 31) SMALLCHOL_UNROLLED(extern template, 32)
+#endif
+
+namespace {
+
+// Which kernels take the warp route's M (13..32) for spd_inverse and
+// spd_trace_product: by default the unrolled kernels (spd_inverse_rows_kernel,
+// spd_trace_product_lanes_kernel) where the H100 ran them faster than the
+// runtime-M kernels (spd_inverse_large_kernel, spd_trace_product_large_kernel),
+// the runtime-M kernels elsewhere (kUnrolledMaxM); kWarpRouteRuntimeM and
+// kWarpRouteUnrolled force one kind at every M, so that the tests hold both
+// against the plain versions and the chip check times one against the other.
+enum { kWarpRouteDefault = 0, kWarpRouteRuntimeM = 1, kWarpRouteUnrolled = 2 };
+int g_warp_route = kWarpRouteDefault;
+
+// the largest M at which the default takes the unrolled kernel, by dtype
+// (float32, float64): spd_inverse, then spd_trace_product.  Timed on an
+// H100 by scripts/time_torch_warp_route.py, every M = 13..32: the unrolled
+// kernels ran faster everywhere but the trace product at M = 32 in float64,
+// where a lane's triangle (135 KB a warp) leaves one warp per SM.
+constexpr int kUnrolledMaxM[2][2] = {{kMaxWarpM, kMaxWarpM}, {kMaxWarpM, kMaxWarpM - 1}};
+
+template <typename T>
+bool takes_unrolled(int kernel, int m) {
+  if (g_warp_route != kWarpRouteDefault) return g_warp_route == kWarpRouteUnrolled;
+  return m <= kUnrolledMaxM[kernel][sizeof(T) == 8 ? 1 : 0];
+}
+
+// calls f.template run<M, T>() for the warp route's M = 13..32
+template <typename T, typename F>
+int dispatch_warp_m(int m, F f) {
+  switch (m) {
+    case 13: return f.template run<13, T>();
+    case 14: return f.template run<14, T>();
+    case 15: return f.template run<15, T>();
+    case 16: return f.template run<16, T>();
+    case 17: return f.template run<17, T>();
+    case 18: return f.template run<18, T>();
+    case 19: return f.template run<19, T>();
+    case 20: return f.template run<20, T>();
+    case 21: return f.template run<21, T>();
+    case 22: return f.template run<22, T>();
+    case 23: return f.template run<23, T>();
+    case 24: return f.template run<24, T>();
+    case 25: return f.template run<25, T>();
+    case 26: return f.template run<26, T>();
+    case 27: return f.template run<27, T>();
+    case 28: return f.template run<28, T>();
+    case 29: return f.template run<29, T>();
+    case 30: return f.template run<30, T>();
+    case 31: return f.template run<31, T>();
+    case 32: return f.template run<32, T>();
+    default: return -1;
+  }
+}
+
+struct InverseRows {
+  const void* s; void* out; int64_t n; cudaStream_t stream;
+  template <int M, typename T> int run() const {
+    return smallchol_unrolled::launch_inverse_rows<M, T>(s, out, n, stream);
+  }
+};
+
+struct TraceLanes {
+  const void* s; const void* g; void* out; int64_t outer; int64_t inner; cudaStream_t stream;
+  template <int M, typename T> int run() const {
+    return smallchol_unrolled::launch_trace_lanes<M, T>(s, g, out, outer, inner, stream);
+  }
+};
+
 template <int M, typename T>
 void launch_inverse(const void* s, void* out, int64_t n, cudaStream_t stream) {
   const unsigned blocks = static_cast<unsigned>((n + kInverseTile - 1) / kInverseTile);
@@ -2000,6 +2550,7 @@ struct InverseLaunch {
     return static_cast<int>(cudaGetLastError());
   }
   template <typename T> int run_large(int m) const {
+    if (takes_unrolled<T>(0, m)) return dispatch_warp_m<T>(m, InverseRows{s, out, n, stream});
     return launch_inverse_large<T>(s, out, n, m, stream);
   }
   template <typename T> int run_cta(int m) const {
@@ -2029,6 +2580,9 @@ struct TraceLaunch {
     return static_cast<int>(cudaGetLastError());
   }
   template <typename T> int run_large(int m) const {
+    if (takes_unrolled<T>(1, m)) {
+      return dispatch_warp_m<T>(m, TraceLanes{s, g, out, outer, inner, stream});
+    }
     return launch_trace_large<T>(s, g, out, outer, inner, m, stream);
   }
   template <typename T> int run_cta(int m) const {
@@ -2096,6 +2650,16 @@ long long smallchol_workspace_bytes(int kind, int m, int n_cells, long long coun
   return -1;
 }
 
+// sets which kernels take the warp route's M for spd_inverse and
+// spd_trace_product (0 by M and dtype, 1 runtime-M, 2 unrolled) and returns
+// the previous setting; -1 (nothing set) for another value
+int smallchol_set_warp_route(int route) {
+  if (route < kWarpRouteDefault || route > kWarpRouteUnrolled) return -1;
+  const int previous = g_warp_route;
+  g_warp_route = route;
+  return previous;
+}
+
 // sets the CTA route's shared-memory limit per CTA (bytes; past it the
 // workspace is global memory) and returns the previous one
 int smallchol_set_cta_shared_limit(int bytes) {
@@ -2147,3 +2711,5 @@ const char* smallchol_error_string(int err) {
 }
 
 }  // extern "C"
+
+#endif  // !defined(SMALLCHOL_PART) || SMALLCHOL_PART == 0

@@ -17,7 +17,8 @@ the kernels.
 
 The library is built at first use from the repository's source with
 ``nvcc`` into ``_build/`` beside the package (a content-addressed file
-name, so an edited source is rebuilt), and loaded with ``ctypes``.
+name, so an edited source is rebuilt), in PARTS parts compiled at once and
+linked, and loaded with ``ctypes``.
 """
 
 from __future__ import annotations
@@ -45,10 +46,15 @@ NVCC_FLAGS = (
     # no multiply-add contraction: the kernels round like the plain versions
     "-fmad=false",
     "-Xptxas", "-v",
-    # optimise the one source's kernels in parallel, on every core
+    # optimise each part's kernels in parallel, on every core
     "--split-compile=0",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
+#: the source is compiled as this many parts at once (-DSMALLCHOL_PART=0 ..
+#: PARTS - 1: part 0 every kernel but the warp route's unrolled ones and the
+#: C interface, the others those for their ranges of M), then linked: ptxas
+#: compiles one part's kernels one after another
+PARTS = 7
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 
 _lib: Optional[ctypes.CDLL] = None
@@ -70,29 +76,47 @@ def _nvcc() -> str:
 
 
 def library_path() -> pathlib.Path:
-    digest = hashlib.sha1(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    flags = " ".join(NVCC_FLAGS) + f" parts={PARTS}"
+    digest = hashlib.sha1(SOURCE.read_bytes() + flags.encode()).hexdigest()
     return BUILD_DIR / f"libsmallchol-{digest[:16]}.so"
 
 
 def build() -> pathlib.Path:
-    """Compile the kernel library unless this source's build exists.
-    The compiler's report (registers, spills) lands next to it as ``.log``."""
+    """Compile the kernel library unless this source's build exists: the
+    PARTS parts at once, then one link.  The compiler's report (registers,
+    spills) lands next to it as ``.log``."""
     global build_seconds
     path = library_path()
     if path.exists():
         build_seconds = 0.0
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    stem = path.with_name(f"{path.stem}.{os.getpid()}")
+    objs = [stem.with_name(f"{stem.name}.part{p}.o") for p in range(PARTS)]
+    logs = [o.with_suffix(".txt") for o in objs]
+    tmp = stem.with_name(f"{stem.name}.tmp.so")
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = []
+    for part, (obj, log) in enumerate(zip(objs, logs)):
+        cmd = [_nvcc(), *NVCC_FLAGS, "-c", f"-DSMALLCHOL_PART={part}", "-o", str(obj), str(SOURCE)]
+        with open(log, "w") as out:  # a file, not a pipe: no part waits on a reader
+            procs.append((cmd, subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT)))
+    codes = [(cmd, proc.wait()) for cmd, proc in procs]
+    failed = [(cmd, rc) for cmd, rc in codes if rc != 0]
+    report = "".join(log.read_text() for log in logs)
+    if not failed:
+        cmd = [_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]
+        link = subprocess.run(cmd, capture_output=True, text=True)
+        report += link.stdout + link.stderr
+        if link.returncode != 0:
+            failed = [(cmd, link.returncode)]
     build_seconds = time.perf_counter() - t0
-    path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr[-4000:]}"
-        )
+    path.with_suffix(".log").write_text(report)
+    for f in objs + logs:
+        f.unlink(missing_ok=True)
+    if failed:
+        cmd, rc = failed[0]
+        raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{report[-4000:]}")
     os.replace(tmp, path)  # atomic: a concurrent builder sees a whole file
     return path
 
@@ -121,6 +145,8 @@ def _load() -> ctypes.CDLL:
     lib.smallchol_workspace_bytes.restype = ll
     lib.smallchol_set_cta_shared_limit.argtypes = [i]
     lib.smallchol_set_cta_shared_limit.restype = i
+    lib.smallchol_set_warp_route.argtypes = [i]
+    lib.smallchol_set_warp_route.restype = i
     lib.smallchol_error_string.argtypes = [i]
     lib.smallchol_error_string.restype = ctypes.c_char_p
     _lib = lib  # last: a concurrent first call at worst loads the file twice
@@ -179,6 +205,27 @@ def cta_workspace_in_global_memory():
         yield
     finally:
         lib.smallchol_set_cta_shared_limit(previous)
+
+
+#: the kernels that ``warp_route`` can force at M = 13..32
+WARP_ROUTES = {"runtime_m": 1, "unrolled": 2}
+
+
+@contextlib.contextmanager
+def warp_route(kind: str):
+    """Within the block, ``spd_inverse`` and ``spd_trace_product_packed``
+    take one kind of kernel at every M = 13..32: "runtime_m" (one warp per
+    matrix or block, M an argument, the factors in shared memory) or
+    "unrolled" (M a template parameter: a warp per matrix with its rows in
+    registers, a lane per block).  By default each M takes the kind that
+    ran faster there on the H100; the card tests hold both kinds against
+    the plain versions, and chip_smoke.py times one against the other."""
+    lib = _lib or _load()
+    previous = lib.smallchol_set_warp_route(WARP_ROUTES[kind])
+    try:
+        yield
+    finally:
+        lib.smallchol_set_warp_route(previous)
 
 
 def spd_inverse(S: torch.Tensor) -> torch.Tensor:

@@ -11,7 +11,7 @@ overflow, its inf and NaN entries must sit where the plain version's do.
 is held to the same on clamped pivots, in both dtypes, with the bf16
 round trip, for every column chunk and every mission of a batch.  Each
 kernel is held at every M of its register-resident route (1..12), at
-M = 13, 16, 25 and 32 of its warp route (one warp per matrix) and at M =
+M = 13, 16, 25 and 32 of its warp route and at M =
 33, 48, 64, 81 and 121 of its CTA route (one CTA per matrix), there with
 its workspace in shared memory and, forced, in global memory (where a
 larger M puts it).  Any M >= 1 is taken; M = 0 raises.  The CTA route's
@@ -19,7 +19,13 @@ edge update (a factor kernel, a tiled Uᵀ·A, a gain kernel) is held at M =
 33 and 121 over ragged column tiles, every mask, the round trip and B = 1,
 5 and 192; its trace product (2 blocks per CTA) over ragged runs of
 blocks, each into NaN-filled memory; M = 177 takes the shared-memory form
-of the factorisations.  With two cards, each wrapper runs
+of the factorisations.  ``spd_inverse`` and ``spd_trace_product`` take two
+kinds of kernel at M = 13..32, runtime-M (a warp per matrix or block, the
+factors in shared memory) and unrolled (a warp per matrix with its rows in
+registers; a lane per block): both kinds and the default are held at every
+M from 13 to 32 in both dtypes, the trace product over ragged runs of
+blocks, the inverse over ragged and misaligned batches and both on
+block-diagonal S (zero dividends), each into NaN-filled outputs.  With two cards, each wrapper runs
 on the second while the first is current (one card skips that test).
 
 These tests need an NVIDIA Hopper card and the CUDA toolkit; elsewhere
@@ -31,6 +37,7 @@ The kernels perform the plain versions' operations in the same order with
 one rounding each (no FMA contraction), so they are held to bitwise
 equality."""
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -273,6 +280,164 @@ def test_large_m_route_covers_every_matrix(cuda, B, dtype):
     want = smallchol.edge_factor_gain(S_raw, A, R, a, mask)
     assert bool(torch.isfinite(got[0]).all()) and bool(torch.isfinite(got[1]).all())
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+#: every M of the warp route; the kinds of kernel there (None: the default,
+#: which picks by M and dtype)
+WARP_M = list(range(13, 33))
+WARP_KINDS = [None, "runtime_m", "unrolled"]
+
+
+def warp_kind(kind):
+    return contextlib.nullcontext() if kind is None else kernels.warp_route(kind)
+
+
+def inverse_into_nan(S):
+    """spd_inverse's launch on (n, M, M) S into a NaN-filled output handed
+    to the library, so a matrix no warp wrote shows."""
+    n, M = S.shape[0], S.shape[-1]
+    kernels.spd_inverse(S[:1])  # builds and loads the library
+    out = torch.full_like(S, float("nan"))
+    err = kernels._lib.smallchol_spd_inverse(
+        S.data_ptr(), out.data_ptr(), n, M, kernels._DTYPE_CODES[S.dtype], None,
+        torch.cuda.current_stream().cuda_stream,
+    )
+    torch.cuda.synchronize()
+    assert err == 0
+    return out
+
+
+def trace_into_nan(Sp, Gp):
+    """spd_trace_product's launch on packed (outer, T, inner) blocks into a
+    NaN-filled output handed to the library."""
+    outer, T, inner = Sp.shape
+    kernels.spd_trace_product_packed(Sp[:1, :, :1].contiguous(), Gp[:1, :, :1].contiguous())
+    out = torch.full((outer, inner), float("nan"), dtype=Sp.dtype, device=Sp.device)
+    err = kernels._lib.smallchol_spd_trace_product(
+        Sp.data_ptr(), Gp.data_ptr(), out.data_ptr(), outer, inner, smallchol.packed_m(T),
+        kernels._DTYPE_CODES[Sp.dtype], None, torch.cuda.current_stream().cuda_stream,
+    )
+    torch.cuda.synchronize()
+    assert err == 0
+    return out
+
+
+def same_finite(got, want):
+    """Bitwise equal, NaN in the same places, and finite where the plain
+    version is (a clamped pivot's huge entries)."""
+    return same(got, want) and torch.equal(torch.isfinite(got), torch.isfinite(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("M", WARP_M)
+def test_spd_inverse_warp_route_every_m(cuda, M, dtype):
+    """spd_inverse at every M of the warp route, by default and with each
+    kind of kernel forced, on 67 matrices (one clamped) into NaN-filled
+    outputs."""
+    S = random_spd(67, M, dtype, seed=500 + M)
+    S[5, -1, -1] -= 2.0 * S[5].diagonal().sum()  # indefinite: the last pivot is clamped
+    S = S.to(cuda)
+    want = smallchol.spd_inverse(S)
+    for kind in WARP_KINDS:
+        with warp_kind(kind):
+            got = inverse_into_nan(S)
+        assert same_finite(got, want), kind
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("M", WARP_M)
+def test_trace_product_warp_route_every_m(cuda, M, dtype):
+    """spd_trace_product at every M of the warp route, by default and with
+    each kind of kernel forced, on (3, T, 37) packed blocks (one clamped):
+    111 blocks, so the last warp of a lane per block is ragged and warps
+    cross an o; into NaN-filled outputs."""
+    outer, inner = 3, 37
+    S = random_spd(outer * inner, M, dtype, seed=600 + M)
+    S[40, -1, -1] -= 2.0 * S[40].diagonal().sum()
+    Sp = packed(S.to(cuda), outer, inner)
+    Gp = packed(random_spd(outer * inner, M, dtype, seed=700 + M).to(cuda), outer, inner)
+    want = smallchol.spd_trace_product_packed(Sp, Gp)
+    for kind in WARP_KINDS:
+        with warp_kind(kind):
+            got = trace_into_nan(Sp, Gp)
+        assert same_finite(got, want), kind
+
+
+@pytest.mark.parametrize("inner", [1, 7, 31, 33, 400])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_trace_product_lanes_ragged_runs(cuda, dtype, inner):
+    """The trace product at M = 25 on (3, 325, inner) blocks: outer·inner is
+    no multiple of a warp's 32 blocks, and for inner < 32 or no multiple of
+    32 a warp's lanes span several o; both kinds of kernel, into NaN-filled
+    outputs."""
+    M, outer = 25, 3
+    n = outer * inner
+    S = random_spd(n, M, dtype, seed=inner)
+    S[n // 2, -1, -1] -= 2.0 * S[n // 2].diagonal().sum()
+    Sp = packed(S.to(cuda), outer, inner)
+    Gp = packed(random_spd(n, M, dtype, seed=50 + inner).to(cuda), outer, inner)
+    want = smallchol.spd_trace_product_packed(Sp, Gp)
+    for kind in ("runtime_m", "unrolled"):
+        with kernels.warp_route(kind):
+            got = trace_into_nan(Sp, Gp)
+        assert same_finite(got, want), kind
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B", [1, 31, 33, 4097])
+def test_spd_inverse_warp_route_batches(cuda, B, dtype, offset):
+    """spd_inverse at M = 25 on B matrices (one clamped), both kinds of
+    kernel, into NaN-filled outputs; with ``offset`` the input starts one
+    matrix into its storage (625 elements: not 16-byte aligned), so the
+    staging copies' single-element head and tail and the stores' element
+    path run."""
+    M = 25
+    S = random_spd(B + offset, M, dtype, seed=B)
+    S[offset + B // 2, -1, -1] -= 2.0 * S[offset + B // 2].diagonal().sum()
+    S = S.to(cuda)[offset:]
+    want = smallchol.spd_inverse(S)
+    for kind in ("runtime_m", "unrolled"):
+        with kernels.warp_route(kind):
+            got = inverse_into_nan(S)
+        assert same_finite(got, want), kind
+        with kernels.warp_route(kind):  # and through the wrapper
+            assert same_finite(kernels.spd_inverse(S), want), kind
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("M", [13, 25, 32])
+def test_warp_route_zero_dividends(cuda, M, dtype):
+    """Block-diagonal S (three interleaved blocks), as the 2 m sweep's
+    blocks are in part: most entries of L and L⁻¹ are zeros, so most of the
+    forward substitution's divisions have a zero dividend, which the
+    unrolled kernels answer without dividing.  Both kinds, bitwise, the
+    zeros' signs included."""
+    i = torch.arange(M)
+    pattern = (i[:, None] % 3 == i[None, :] % 3).to(torch.float64)
+    gen = torch.Generator().manual_seed(M)
+    A = torch.randn((111, M, M), generator=gen, dtype=torch.float64) * pattern
+    S = (A @ A.mT + 0.5 * torch.eye(M, dtype=torch.float64)).to(dtype).to(cuda)
+    G = random_spd(111, M, dtype, seed=800 + M).to(cuda)
+    Sp, Gp = packed(S, 3, 37), packed(G, 3, 37)
+    want_inv = smallchol.spd_inverse(S)
+    want_tr = smallchol.spd_trace_product_packed(Sp, Gp)
+    assert bool((want_inv == 0).any())
+    for kind in ("runtime_m", "unrolled"):
+        with kernels.warp_route(kind):
+            got_inv = inverse_into_nan(S)
+            got_tr = trace_into_nan(Sp, Gp)
+        assert same_finite(got_inv, want_inv), kind
+        assert torch.equal(torch.signbit(got_inv), torch.signbit(want_inv)), kind
+        assert same_finite(got_tr, want_tr), kind
+
+
+def test_warp_route_refuses_an_unknown_kind(cuda):
+    kernels.spd_inverse(random_spd(1, 13, torch.float32, seed=0).to(cuda))
+    assert kernels._lib.smallchol_set_warp_route(3) == -1
+    with pytest.raises(KeyError):
+        with kernels.warp_route("cta"):
+            pass
 
 
 def test_edge_factor_gain_is_the_edge_update(cuda):
