@@ -212,8 +212,10 @@ Phases, each of which fails the run on a failed check (none is caught):
    with each kind of kernel (runtime-M, unrolled); ``spd_inverse_factor`` at
    (1024, M, M); ``edge_factor_gain`` at (1024, M, 400) with a per-mission
    mask (M = 25: a fine-grid descent step's inputs); times each at M = 25
-   as at M = 9, and ``spd_inverse`` (4096, M, M) and the sweep pair with
-   each kind forced at M = 13, 25 and 32 in float32.
+   as at M = 9, ``spd_inverse`` (4096, M, M) and the sweep pair with each
+   kind forced at M = 13, 25 and 32 in float32, and ``spd_inverse_factor``
+   (1024, M, M) and ``edge_factor_gain`` (1024, M, 400) at M = 13, 25 and
+   32 in float32 and float64.
 16. the 1 m grid (allowance ``FINE_1M_ALLOWANCE_S``): example.yaml's field
    on ``FINE_1M_GRID`` (40 x 40 cells of 1 m: lattice M = 81, continuous
    M = 121, A = 3200, N = 1600; the kernels' CTA route): (a) greedy with
@@ -238,6 +240,26 @@ Phases, each of which fails the run on a failed check (none is caught):
    ``CTA_M_RAGGED`` a trace-product CTA with empty slots and blocks across
    two o, and ``edge_factor_gain`` over a ragged column tile with a shared
    mask and the bf16 round trip.
+17. the 2 m grid's CMA-ES and MCTS-zero (allowance ``FINE_2M_ALLOWANCE_S``;
+   ``FINE_GRID``: continuous and lattice M = 25, N = 400, A = 800, the
+   kernels' warp route): (a) CMA-ES on temperature_cmaes.yaml at full width
+   (λ = 12, 20 generations, horizon 5) at B = ``FINE_2M_CMAES_B``, one
+   replan after a warm-up at one generation, counted from 0: per replan
+   ``edge_factor_gain`` G·H + H, ``spd_trace_product`` 2H, ``spd_inverse``
+   H + 1, ``spd_inverse_factor`` 0; metrics finite, uncertainty falls,
+   budgets non-negative; the peak; one more replan split by CUDA events;
+   the replan's first fitness launch ((B·λ, 25, 400), per-member mask)
+   bitwise against the plain version, and timed on it with its bound and
+   the library call.  (b) the
+   MCTS-zero deploy search on example.yaml at full width (128 channels, 10
+   encoder blocks, 100 simulations) with seeded weights at B =
+   ``FINE_2M_ZERO_B``, one replan after a warm-up at 2 simulations, counted
+   from 0: ``edge_factor_gain`` once per descent step,
+   ``spd_inverse_factor`` never, every root's visits simulations − 1,
+   metrics finite; one descent step's edge inputs bitwise and timed; the
+   replan split by CUDA events as in phase 5; the peak.
+   Phase 17's B = 256 on 2 m cells is an assumed workload: no config of
+   the repo sets 2 m cells.
 
 Float32 products run in full float32: TF32 is switched off for matmuls
 and cuDNN.  The last stdout line is ``{"ok": true, "device": {...}}``;
@@ -390,6 +412,11 @@ FINE_1M_GRID = {"x_dim": 40, "y_dim": 40, "resolution": 1}
 FINE_1M_B, FINE_1M_STEPS, FINE_1M_AGREE_B = 16, 4, 2
 FINE_1M_CMAES_B = 16
 FINE_1M_ALLOWANCE_S = 150
+# phase 17: CMA-ES (temperature_cmaes.yaml) and the MCTS-zero deploy search
+# (example.yaml, full width, seeded weights) on FINE_GRID, B x one replan:
+# both drive edge_factor_gain's warp route (M = 25, N = 400)
+FINE_2M_CMAES_B, FINE_2M_ZERO_B = 256, 256
+FINE_2M_ALLOWANCE_S = 90
 # the CTA route's clamped-pivot and float64 (global workspace) checks in
 # phase 2: every M >= 33 runs the same code, and a plain version's time
 # grows as M^3 (~20 s a call at M = 121 on the card)
@@ -667,6 +694,8 @@ def kernel_phase(gen: torch.Generator) -> list:
         r["m25"] = large[r["name"]]["m25"]
         if "kinds" in large[r["name"]]:  # K1 and K2 with each kind of warp-route kernel
             r["warp_kinds"] = large[r["name"]]["kinds"]
+        if "warp_m" in large[r["name"]]:  # K3 and the edge at M = 13, 25, 32
+            r["warp_m"] = large[r["name"]]["warp_m"]
         r["large_m_checks"] = large[r["name"]]["checks"]
         r["m81_m121"] = cta[r["name"]]["rows"]
         r["cta_m_checks"] = cta[r["name"]]["checks"]
@@ -758,7 +787,8 @@ def library_edge_tail(S_raw, A, R_table, a, mask):
     S = 0.5 * (S_raw + S_raw.mT) + torch.diag_embed(R_table[a])
     U = torch.linalg.cholesky(torch.cholesky_inverse(torch.linalg.cholesky(S)))
     WcT = U.mT @ A
-    return WcT, torch.sum(torch.sum(WcT * WcT, dim=-2) * mask, dim=-1)
+    sq = torch.sum(WcT * WcT, dim=-2)
+    return WcT, torch.sum(sq if mask is None else sq * mask, dim=-1)
 
 
 def edge_factor_gain_row(gen: torch.Generator) -> dict:
@@ -1060,7 +1090,8 @@ def large_m_rows(gen: torch.Generator) -> dict:
     pair's shapes, at M = 13, 25 and 32, with each kind of
     kernel forced (``kernels.warp_route``: runtime-M, unrolled).  Returns
     per kernel name its checks, its M = 25 times, bound and library call
-    (float32), and for K1 and K2 the times of both kinds."""
+    (float32), for K1 and K2 the times of both kinds, and for K3 and the
+    edge their times at M = 13, 25 and 32 in both dtypes."""
     log("  large-M route: M = 13, 25, 32 in float32 and float64; M = 25 on the "
         f"{FINE_GRID['x_dim']}x{FINE_GRID['y_dim']} grid at resolution {FINE_GRID['resolution']}")
     out = {name: {"checks": []} for name in
@@ -1166,6 +1197,8 @@ def large_m_rows(gen: torch.Generator) -> dict:
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}), {t['bound_ms'] / t['ms']:.1%} of it")
         v["max_abs_err"] = max(e["max_abs_err"] for c in v["checks"] for e in c.values())
     out["spd_inverse"]["kinds"], out["spd_trace_product"]["kinds"] = warp_kind_times(sweep, gen)
+    out["spd_inverse_factor"]["warp_m"], out["edge_factor_gain"]["warp_m"] = factor_warp_times(
+        edge25, gen)
     return out
 
 
@@ -1210,6 +1243,54 @@ def warp_kind_times(sweep: list, gen: torch.Generator) -> tuple:
                 f"{k['unrolled']:.4f} ms device; bound {k['bound_ms']:.4f}, plain "
                 f"{k['plain_ms']:.1f}, library {k['library_ms']:.3f} ms")
     return inv, trace
+
+
+def edge_bytes(S_raw, A, R, a, mask) -> int:
+    """Bytes edge_factor_gain must move: S_raw and A read, Wcᵀ and the gain
+    written, the mask, one R row and one action per mission."""
+    B, m, _ = A.shape
+    return ((S_raw.numel() + 2 * A.numel() + B + B * m + (0 if mask is None else mask.numel()))
+            * A.element_size() + a.numel() * a.element_size())
+
+
+def factor_warp_times(edge25, gen: torch.Generator) -> tuple:
+    """K3 at (1024, M, M) and edge_factor_gain at (1024, M, 400) with a
+    per-mission mask (at M = 25 one 2 m descent step's inputs) at M = 13,
+    25 and 32 in float32 and float64: device ms (CUDA graph), the bound,
+    one plain and one library call, and the edge's kernels by the
+    profiler; scripts/time_torch_warp_route.py times every M."""
+    fac, edge = {}, {}
+    for dtype in (torch.float32, torch.float64):
+        elt = torch.finfo(dtype).bits // 8
+        for m in LARGE_M_CHECKED:
+            S = random_spd(ZERO_B, gen, m, dtype)
+            if m == 25:
+                args = tuple(x.to(dtype) if x.is_floating_point() else x for x in edge25)
+            else:
+                args = random_edge_inputs(ZERO_B, m, 400, dtype, gen)
+            B, _, n = args[1].shape
+            k3 = {"ms": graph_ms(lambda: kernels.spd_inverse_factor(S), 50)}
+            ke = {"ms": graph_ms(lambda: kernels.edge_factor_gain(*args), 50)}
+            k3["bound_ms"], k3["bound_by"] = bound(3 * S.numel() * elt,
+                                                   ZERO_B * inverse_factor_ops(m))
+            ke["bound_ms"], ke["bound_by"] = bound(
+                edge_bytes(*args), B * edge_ops(m, n, masked=True, round_bf16=False))
+            k3["plain_ms"] = plain_once(lambda: smallchol.spd_inverse_factor(S))[1]
+            ke["plain_ms"] = plain_once(lambda: smallchol.edge_factor_gain(*args))[1]
+            k3["library_ms"] = cuda_ms(lambda: torch.linalg.cholesky(
+                torch.cholesky_inverse(torch.linalg.cholesky(S))), 5)
+            ke["library_ms"] = cuda_ms(lambda: library_edge_tail(*args), 5)
+            ke["kernels_us"] = device_kernels_us(lambda: kernels.edge_factor_gain(*args))
+            tag = f"M={m} {str(dtype)[6:]}"
+            fac[tag], edge[tag] = k3, ke
+            for name, k in ((f"spd_inverse_factor (1024, {m}, {m})", k3),
+                            (f"edge_factor_gain (1024, {m}, 400)", ke)):
+                log(f"  {name} {tag}: {k['ms']:.4f} ms device; bound {k['bound_ms']:.4f} "
+                    f"({k['bound_by']}), plain {k['plain_ms']:.1f}, library "
+                    f"{k['library_ms']:.3f} ms")
+            log(f"    the edge's kernels (profiler, µs): {ke['kernels_us']}")
+            del args
+    return fac, edge
 
 
 def plain_once(fn):
@@ -1646,19 +1727,9 @@ def zero_phase(cfg) -> dict:
     state = res.final_state
     hist = init_history(cfg, hp, ZERO_B, world.dtype, world.device)
     hist = push_history(hist, state.cov, state.pos, state.budget / cfg.constraints.budget)
-    timer = PhaseTimer()
-    mcts = planner.mcts
-    timer.wrap(mcts, "_descend_step", "descent")
-    timer.wrap(mcts, "_leaf_outputs", "leaf_planes")
-    timer.wrap(mcts, "leaf_planes", "leaf_planes")
-    timer.wrap(mcts, "predict", "forward")
-    timer.wrap(mcts, "_integrate_eval", "integrate_backup")
-    timer.wrap(mcts, "_backup", "integrate_backup")
-    timer.wrap(planner, "_replan", "replan")
+    timer = zero_timer(planner)
     planner._replan(state, hist, gen, None)
-    split = timer.ms()
-    split["other"] = split["replan"] - sum(v for k, v in split.items() if k != "replan")
-    log("  one replan by CUDA events: " + ", ".join(f"{k} {v:.1f} ms" for k, v in split.items()))
+    split = zero_split(timer)
     n = cfg.environment.num_cells
     flops = network_flops(net, torch.zeros((ZERO_B, n, n, plane_channels(hp)), device=world.device),
                           torch.ones((ZERO_B, world.num_actions), device=world.device))
@@ -1688,6 +1759,28 @@ def zero_phase(cfg) -> dict:
         f"replans/s, {out['ms_per_mission_replan']:.3f} ms per mission-replan; "
         f"peak {peak:.2f} GB")
     return out
+
+
+def zero_timer(planner) -> PhaseTimer:
+    """A PhaseTimer on the zero search's phases and the planner's replans."""
+    timer = PhaseTimer()
+    mcts = planner.mcts
+    timer.wrap(mcts, "_descend_step", "descent")
+    timer.wrap(mcts, "_leaf_outputs", "leaf_planes")
+    timer.wrap(mcts, "leaf_planes", "leaf_planes")
+    timer.wrap(mcts, "predict", "forward")
+    timer.wrap(mcts, "_integrate_eval", "integrate_backup")
+    timer.wrap(mcts, "_backup", "integrate_backup")
+    timer.wrap(planner, "_replan", "replan")
+    return timer
+
+
+def zero_split(timer: PhaseTimer) -> dict:
+    """ms per phase of the replans the timer saw, by CUDA events."""
+    split = timer.ms()
+    split["other"] = split["replan"] - sum(v for k, v in split.items() if k != "replan")
+    log("  replan by CUDA events: " + ", ".join(f"{k} {v:.1f} ms" for k, v in split.items()))
+    return split
 
 
 def zero_agreement_phase(cfg) -> dict:
@@ -3283,6 +3376,212 @@ def fine_1m_phase() -> dict:
     return parts
 
 
+def capture_edge_launches(keep):
+    """A stand-in for kernels.edge_factor_gain that keeps the inputs of the
+    launches ``keep(i)`` picks (i counts the launches) and launches the
+    kernel; install it with ``swap_edge_launch``."""
+    launch, captured, seen = kernels.edge_factor_gain, [], [0]
+
+    def capture(*args):
+        if keep(seen[0]):
+            captured.append(args)
+        seen[0] += 1
+        return launch(*args)
+
+    capture.launches = 0  # the wrapper counts its launch on the name it is bound to
+    return capture, captured
+
+
+@contextlib.contextmanager
+def swap_edge_launch(stand_in):
+    launch = kernels.edge_factor_gain
+    kernels.edge_factor_gain = stand_in
+    try:
+        yield launch
+    finally:
+        kernels.edge_factor_gain = launch
+
+
+def device_kernels_us(fn, calls: int = 10) -> dict:
+    """Mean device µs per call of each kernel that fn() launches, by kernel
+    name, from torch.profiler's device events; where the profiler cannot
+    start, stop or record device events, what it said (a measurement, not a
+    check: fn's own errors are raised)."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    try:
+        prof.start()
+    except RuntimeError as e:
+        return {"profile_error": f"start: {e}"}
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    try:
+        prof.stop()
+        events = prof.events()
+    except RuntimeError as e:
+        return {"profile_error": f"stop: {e}"}
+    out = {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA:
+            found = re.search(r"\w+_kernel", e.name)
+            name = found.group(0) if found else e.name[:60]
+            out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / calls
+    return out or {"profile_error": "no device events"}
+
+
+def edge_launch_check(args, launch) -> dict:
+    """One recorded edge_factor_gain launch: both outputs bitwise against
+    the plain version, then its device ms (CUDA graph), the bound, one
+    library call and its kernels by the profiler."""
+    want = smallchol.edge_factor_gain(*args)
+    errs = [compare(f"edge_factor_gain {tuple(args[1].shape)} ({part})", g, w)
+            for g, w, part in zip(launch(*args), want, ("WcT", "gain"))]
+    B, m, n = args[1].shape
+    t = {"ms": graph_ms(lambda: launch(*args), 20)}
+    t["bound_ms"], t["bound_by"] = bound(edge_bytes(*args[:5]), B * edge_ops(
+        m, n, masked=args[4] is not None, round_bf16=len(args) > 5 and bool(args[5])))
+    t["library_ms"] = cuda_ms(lambda: library_edge_tail(*args[:5]), 5)
+    t["max_abs_err"] = max(e["max_abs_err"] for e in errs)
+    t["kernels_us"] = device_kernels_us(lambda: launch(*args))
+    log(f"  edge_factor_gain {tuple(args[1].shape)}: {t['ms']:.4f} ms device; bound "
+        f"{t['bound_ms']:.4f} ms ({t['bound_by']}), library {t['library_ms']:.3f} ms; its "
+        f"kernels (profiler, µs): {t['kernels_us']}")
+    return t
+
+
+def fine_2m_cmaes() -> dict:
+    """(a) CMA-ES on temperature_cmaes.yaml at 2 m (continuous M = 25, N =
+    400), B = FINE_2M_CMAES_B, one replan counted from 0; then the replan's
+    first fitness launch (B·λ members, per-member mask) bitwise and timed."""
+    tcfg = grid_cfg(FINE_GRID, "temperature_cmaes.yaml")
+    world = IPPWorld(tcfg)
+    check(world.m_max_cont == 25, f"the 2 m continuous M is {world.m_max_cont}, not 25")
+    mc = cmaes_mission(tcfg)
+    H, G, lam = mc.episode_horizon, mc.cma_maxiter, mc.cma_popsize
+    B = FINE_2M_CMAES_B
+    planner = CMAESPlanner(world, mc)
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    warm = CMAESPlanner(world, dataclasses.replace(mc, cma_maxiter=1))
+    warm.run(B, max_steps=1, generator=gen)  # warm-up: cuBLAS, cuSOLVER, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    capture, captured = capture_edge_launches(lambda i: i == 0)
+    with swap_edge_launch(capture) as launch:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = planner.run(B, max_steps=1, generator=gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    want = {"edge_factor_gain": G * H + H, "spd_trace_product": H * 2, "spd_inverse": H + 1,
+            "spd_inverse_factor": 0}
+    log(f"  (a) launches in the replan: {launches} (want {want})")
+    check(launches == want, "the 2 m CMA-ES launch counts differ from the stated ones")
+    for k in ("rmse", "mll", "uncertainty", "uncertainty_difference"):
+        check(bool(np.isfinite(res.metrics[k]).all()), f"2 m CMA-ES: metric {k} not finite")
+    unc = res.metrics["uncertainty"].mean(axis=0)
+    check(bool(unc[-1] < unc[0]), "2 m CMA-ES: uncertainty does not fall")
+    check(float(res.budgets.min()) >= 0.0, "2 m CMA-ES: a budget went negative")
+    split, fitness = cmaes_replan_split(planner, world, res.final_state, gen)
+    args = captured[0]
+    check(tuple(args[1].shape) == (B * lam, 25, 400) and args[4] is not None
+          and tuple(args[4].shape) == (B * lam, 400),
+          f"the first fitness launch's A is {tuple(args[1].shape)}, its mask "
+          f"{None if args[4] is None else tuple(args[4].shape)}")
+    edge = edge_launch_check(args, launch)
+    out = {"batch": B, "replans": 1, "popsize": lam, "generations": G, "horizon": H,
+           "run_wall_s": wall, "ms_per_replan": wall * 1e3, "peak_mem_gb": peak,
+           "launches": launches, "replan_split_ms": split,
+           "fitness_share": sum(fitness) / split["replan"], "fitness_call_ms": fitness,
+           "mean_uncertainty": unc.tolist(), "first_fitness_edge": edge}
+    log(f"  (a) 2 m CMA-ES, B = {B}, one replan: {wall * 1e3:.1f} ms (fitness "
+        f"{out['fitness_share']:.0%} of the timed replan); peak {peak:.2f} GB")
+    return out
+
+
+def fine_2m_zero() -> dict:
+    """(b) the MCTS-zero deploy search on example.yaml at 2 m (lattice M =
+    25, A = 800, N = 400) at full width with seeded weights, B =
+    FINE_2M_ZERO_B, one replan counted from 0 after a warm-up at 2
+    simulations and split by CUDA events; one descent step's edge inputs
+    bitwise and timed."""
+    cfg = grid_cfg(FINE_GRID)
+    mc = zero_mission(cfg)
+    hp = mc.hyper_params
+    sims, B = hp.num_mcts_simulations, FINE_2M_ZERO_B
+    world = IPPWorld(cfg)
+    check(world.H.shape[1] == 25 and world.num_actions == 800,
+          f"the 2 m lattice has M = {world.H.shape[1]}, A = {world.num_actions}")
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    net = init_network(cfg, hp, gen)
+    predict = predict_fn(net, dtype=inference_dtype(hp))
+    ZeroPlanner(world, zero_mission(cfg, num_mcts_simulations=2), predict,
+                net.state_dict()).run(B, max_steps=1, generator=gen)  # warm-up
+    planner = ZeroPlanner(world, mc, predict, net.state_dict(), deploy_mode="reference")
+    visits = RootVisits(planner)
+    timer = zero_timer(planner)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    capture, captured = capture_edge_launches(lambda i: i == 50)
+    with swap_edge_launch(capture) as launch, \
+            count_calls(planner.mcts, "_descend_step") as steps:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = planner.run(B, max_steps=1, generator=gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  (b) launches in the replan: {launches}; descent steps {steps[0]}")
+    check(launches["edge_factor_gain"] == steps[0] > 0,
+          "2 m zero: edge_factor_gain did not launch once per descent step")
+    check(launches["spd_inverse_factor"] == 0, "2 m zero: spd_inverse_factor launched")
+    root_ns = torch.stack(visits.Ns)
+    check(len(visits.Ns) == 1 and bool((root_ns == sims - 1).all()),
+          f"2 m zero: root visit totals {root_ns.min().item():g}..{root_ns.max().item():g}, "
+          f"want {sims - 1}")
+    for k in ("rmse", "mll", "uncertainty", "uncertainty_difference"):
+        check(bool(np.isfinite(res.metrics[k]).all()), f"2 m zero: metric {k} not finite")
+    check(len(captured) == 1 and tuple(captured[0][1].shape) == (B, 25, 400),
+          "2 m zero: the descent step's edge inputs were not recorded")
+    split = zero_split(timer)
+    edge = edge_launch_check(captured[0], launch)
+    out = {"batch": B, "replans": 1, "simulations": sims, "channels": hp.num_channels,
+           "encoder_blocks": hp.num_encoder_res_blocks, "run_wall_s": wall,
+           "ms_per_replan": wall * 1e3, "peak_mem_gb": peak, "launches": launches,
+           "descent_steps": steps[0],
+           "root_visits": [root_ns.min().item(), root_ns.max().item()],
+           "replan_split_ms": split, "descent_step_edge": edge,
+           "mean_uncertainty": res.metrics["uncertainty"].mean(axis=0).tolist()}
+    log(f"  (b) 2 m zero, B = {B}, one replan: {wall * 1e3:.1f} ms, {steps[0]} descent steps; "
+        f"peak {peak:.2f} GB")
+    return out
+
+
+def fine_2m_phase() -> dict:
+    log(f"== the 2 m grid's CMA-ES and MCTS-zero: temperature_cmaes.yaml and example.yaml on "
+        f"{FINE_GRID['x_dim']}x{FINE_GRID['y_dim']} cells of {FINE_GRID['resolution']} m "
+        f"(M = 25, N = 400; allowance {FINE_2M_ALLOWANCE_S} s)")
+    parts = {}
+    t = time.perf_counter()
+    parts["cmaes"] = fine_2m_cmaes()
+    parts["cmaes_s"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    parts["zero"] = fine_2m_zero()
+    parts["zero_s"] = time.perf_counter() - t
+    log(f"  2 m parts: CMA-ES {parts['cmaes_s']:.1f} s, zero {parts['zero_s']:.1f} s")
+    return parts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs an NVIDIA card",
@@ -3301,7 +3600,9 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_path = kernels.build()
     build_s = time.perf_counter() - t0
-    log(f"build: {lib_path.name} in {build_s:.1f} s (nvcc {kernels.build_seconds:.1f} s)")
+    part_s = list(kernels.part_seconds)
+    log(f"build: {lib_path.name} in {build_s:.1f} s (nvcc {kernels.build_seconds:.1f} s; "
+        f"{kernels.PARTS} parts ended at {[round(t, 1) for t in part_s]} s)")
     t0 = time.perf_counter()
     traj_lib = pathlib.Path(trajgen.build_library())
     build_s += time.perf_counter() - t0
@@ -3348,6 +3649,7 @@ def main() -> int:
     multidevice = timed("multidevice", multidevice_phase)
     quality = timed("quality", quality_phase)
     fine_1m = timed("fine_1m", fine_1m_phase)
+    fine_2m = timed("fine_2m", fine_2m_phase)
     pr6_s = phase_s["static"] + phase_s["cmaes"] + phase_s["cmaes_agreement"]
     pr7_s = phase_s["classic"] + phase_s["classic_agreement"] + phase_s["entry_points"]
     pr8_s = phase_s["deploy"] + phase_s["multidevice"]
@@ -3358,7 +3660,8 @@ def main() -> int:
         f"classic + classic_agreement + entry_points {pr7_s:.1f} (allowance 120); "
         f"deploy + multidevice {pr8_s:.1f} (allowance {NEW_PHASES_ALLOWANCE_S}); "
         f"quality {phase_s['quality']:.1f} (allowance {QUALITY_ALLOWANCE_S}); "
-        f"fine_1m {phase_s['fine_1m']:.1f} (allowance {FINE_1M_ALLOWANCE_S})")
+        f"fine_1m {phase_s['fine_1m']:.1f} (allowance {FINE_1M_ALLOWANCE_S}); "
+        f"fine_2m {phase_s['fine_2m']:.1f} (allowance {FINE_2M_ALLOWANCE_S})")
     for r in rows:  # over the main paths, each counted from 0
         r["launches_by_path"] = {"greedy": greedy["launches"][r["name"]],
                                  "zero": zero["launches"][r["name"]],
@@ -3372,20 +3675,24 @@ def main() -> int:
                                  "fine_grid": quality["fine_grid"]["launches"][r["name"]],
                                  "quality": quality["curve"]["launches"][r["name"]],
                                  "fine_1m_greedy": fine_1m["greedy"]["launches"][r["name"]],
-                                 "fine_1m_cmaes": fine_1m["cmaes"]["launches"][r["name"]]}
+                                 "fine_1m_cmaes": fine_1m["cmaes"]["launches"][r["name"]],
+                                 "fine_2m_cmaes": fine_2m["cmaes"]["launches"][r["name"]],
+                                 "fine_2m_zero": fine_2m["zero"]["launches"][r["name"]]}
         r["launches"] = sum(r["launches_by_path"].values())
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "card": card, "kind": kind, "torch": torch.__version__,
-        "cuda": torch.version.cuda, "build_s": build_s, "phase_s": phase_s, "kernels": rows,
+        "cuda": torch.version.cuda, "build_s": build_s, "build_part_s": part_s,
+        "phase_s": phase_s, "kernels": rows,
         "greedy": greedy, "agreement": agreement, "zero": zero,
         "zero_agreement": zero_agreement, "training": training,
         "training_agreement": training_agreement, "static": static, "cmaes": cmaes_run,
         "cmaes_agreement": cmaes_agreement, "classic": classic,
         "classic_agreement": classic_agreement, "entry_points": entry_points,
         "deploy": deploy, "multidevice": multidevice, "quality": quality, "fine_1m": fine_1m,
+        "fine_2m": fine_2m,
     }, indent=1))
 
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",

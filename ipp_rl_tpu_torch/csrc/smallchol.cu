@@ -112,32 +112,11 @@
 //   (zero past N), then an xor-shuffle tree over 16, 8, 4, 2, 1; the plain
 //   version spells out the same order.  No atomics.
 //
-// The large-M route (13 <= M <= 32, the same four entry points): the
+// The warp route (13 <= M <= 32, the same four entry points): the
 // register-resident design above needs M(M+1)/2 values per thread for L
-// alone (325 at M = 25, past the 255 registers a thread may hold), and 20
-// more fully unrolled M values would multiply the build's time.  So M is a
-// runtime argument there, and each matrix (each packed block, each
-// mission) is one warp's, its workspace in shared memory (L and L^-1 at a
-// row stride of M | 1 elements, odd, so the lanes' rows fall in distinct
-// banks; 2 x 32 x 33 x 8 B = 16.5 KB per warp at M = 32 in float64), a CTA
-// of kLargeWarps = 4 warps:
-//   Cholesky, column by column (warp_cholesky_rt): lane i owns row i and
-//     forms s(i,j) - sum_k L[i][k] L[j][k] (k in order) with L[j][k] read
-//     from shared memory; lane j's sum gives the pivot by shuffle;
-//   forward substitution (warp_invert_lower): lane j runs down column j;
-//   the entries of S^-1 (each a sum over k in order) spread over the lanes.
-// Each sum keeps the order of the plain versions, so the route is bitwise
-// equal to them too; the one sum that the lanes cannot split without
-// changing its order, the trace product's M(M+1)/2 terms, lane 0 adds up
-// in order.  spd_inverse and spd_inverse_factor stage each matrix through
-// shared memory with coalesced copies; the trace product reads its block's
-// entries (`inner` apart) straight from global memory; edge_factor_gain
-// reads A straight from global memory, the lanes on consecutive columns.
-// A simple design, not a fast one: at M = 25 a warp does ~M^2 dependent
-// steps with most lanes idle.  So spd_inverse and spd_trace_product have a
-// second kind of kernel there, unrolled for each M (a template parameter,
-// so register arrays and shared offsets are compile-time), which the
-// launch takes wherever it ran faster on the H100 (kUnrolledMaxM):
+// alone (325 at M = 25, past the 255 registers a thread may hold).  Each
+// kernel here is unrolled for each M (a template parameter, so register
+// arrays and shared offsets are compile-time):
 //   spd_inverse_rows_kernel: one warp per matrix, lane i keeping row i of L
 //     and lane c column c of L^-1 in registers, another lane's row or
 //     column read by 16-byte broadcasts from a shared copy, S staged by
@@ -150,7 +129,41 @@
 //     or columns per step.  Bound on the 2 m sweep's 204,800 blocks, f32:
 //     533 MB moved, 0.159 ms; it runs ~7x that, each lane's dependent chains
 //     with too few warps to hide them.
-//
+//   spd_inverse_factor: factor_rows_kernel, spd_inverse_rows_kernel's steps,
+//     then the same column-by-column Cholesky on S^-1's lower triangle (in
+//     shared memory) with U's rows in registers; S^-1 and U stored.  Bound
+//     at (1024, 25, 25), f32: 7.7 MB moved, 2.3 us; its ~4M dependent steps
+//     bind, with about 8 warps per SM at B = 1024.
+//   edge_factor_gain: two device kernels on one stream.  (1)
+//     factor_rows_kernel again, S = 0.5 (S_raw + S_raw^T) + diag(R[a])
+//     formed as the first Cholesky reads the staged S_raw; U^T stored dense
+//     to the caller's global workspace, rows of kWarpLdu = 32 elements (3.3
+//     MB at (1024, 25), L2-resident).  (2) edge_columns_kernel: a CTA per
+//     mission, a thread per column of A with its column in registers, U^T's
+//     rows by 16-byte broadcasts from shared memory, each column's squares
+//     summed in registers, and the gain in the warp order by warp 0 (the
+//     CTA route's tiled product and gain kernels, on the same U, took 1.9-
+//     2.3x as long on an H100 at M = 25: a shared tile of squares, three
+//     barriers and a (B, N) scratch per 64 columns, and 4 CTAs per SM;
+//     scripts/probe_torch_edge_columns.cu).  Bound at (1024, 25, 400),
+//     f32: 86 MB moved (A and WcT 41 MB each), 25.7 us; it runs ~2.8x that,
+//     the factor's chains ~0.017 ms, then (2) ~0.043 ms.
+// spd_inverse and spd_trace_product keep a second kind there, M a runtime
+// argument, which the launch takes where it ran faster on the H100
+// (kUnrolledMaxM: K2 at M = 32 in float64).  Each matrix or packed block is
+// one warp's, its workspace in shared memory (L and L^-1 at a row stride
+// of M | 1 elements, odd, so the lanes' rows fall in distinct banks), a CTA
+// of kLargeWarps = 4 warps:
+//   Cholesky, column by column (warp_cholesky_rt): lane i owns row i and
+//     forms s(i,j) - sum_k L[i][k] L[j][k] (k in order) with L[j][k] read
+//     from shared memory; lane j's sum gives the pivot by shuffle;
+//   forward substitution (warp_invert_lower): lane j runs down column j;
+//   the entries of S^-1 (each a sum over k in order) spread over the lanes.
+// The one sum that the lanes cannot split without changing its order, the
+// trace product's M(M+1)/2 terms, lane 0 adds up in order.  A simple
+// design, not a fast one: at M = 25 a warp does ~M^2 dependent steps with
+// most lanes idle.  Every kernel of the route keeps each sum in the plain
+// versions' order, so it is bitwise equal to them too.
 // The CTA route (M >= 33, up to kMaxCtaM; the same four entry points, and
 // edge_factor_gain at M <= 12 where the register route's shared slices of
 // N columns do not fit a CTA).  Each matrix (each mission, each of K1's and
@@ -731,30 +744,6 @@ spd_inverse_large_kernel(const T* __restrict__ s, T* __restrict__ out, int64_t n
 
 template <typename T>
 __global__ void __launch_bounds__(kLargeWarps * 32)
-spd_inverse_factor_large_kernel(const T* __restrict__ s, T* __restrict__ inv,
-                                T* __restrict__ chol, int64_t n, int m) {
-  extern __shared__ __align__(16) unsigned char large_smem[];
-  const int warp = static_cast<int>(threadIdx.x) >> 5;
-  const int lane = static_cast<int>(threadIdx.x) & 31;
-  const int64_t b = static_cast<int64_t>(blockIdx.x) * kLargeWarps + warp;
-  if (b >= n) return;
-  const int ld = large_ld(m);
-  T* buf = reinterpret_cast<T*>(large_smem) + warp * large_warp_elems(m);
-  T* L = buf + m * m;
-  T* Li = L + m * ld;
-  const int64_t mm = static_cast<int64_t>(m) * m;
-  warp_copy(buf, s + b * mm, m * m, lane);
-  warp_invert_in_place(buf, m, L, Li, lane);
-  warp_copy(inv + b * mm, buf, m * m, lane);
-  // U = chol(S^-1), zeros above the diagonal, written over buf
-  warp_cholesky_rt([&](int i, int j) { return buf[i * m + j]; }, m, L, ld, lane);
-  for (int k = lane; k < m * m; k += 32) buf[k] = L[(k / m) * ld + k % m];
-  __syncwarp();
-  warp_copy(chol + b * mm, buf, m * m, lane);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kLargeWarps * 32)
 spd_trace_product_large_kernel(const T* __restrict__ s, const T* __restrict__ g,
                                T* __restrict__ out, int64_t outer, int64_t inner, int m) {
   extern __shared__ __align__(16) unsigned char large_smem[];
@@ -786,74 +775,6 @@ spd_trace_product_large_kernel(const T* __restrict__ s, const T* __restrict__ g,
     for (int e = 1; e < kT; ++e) total = total + terms[e];
     out[t] = total;
   }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kLargeWarps * 32)
-edge_factor_gain_large_kernel(const T* __restrict__ s_raw, const T* __restrict__ a_blk,
-                              const T* __restrict__ r_table, const int64_t* __restrict__ action,
-                              const T* __restrict__ mask, int64_t mask_stride,
-                              T* __restrict__ wct, T* __restrict__ gain, int64_t n_missions,
-                              int n, int m, int round_bf16) {
-  extern __shared__ __align__(16) unsigned char large_smem[];
-  const int warp = static_cast<int>(threadIdx.x) >> 5;
-  const int lane = static_cast<int>(threadIdx.x) & 31;
-  const int64_t b = static_cast<int64_t>(blockIdx.x) * kLargeWarps + warp;
-  if (b >= n_missions) return;
-  const int ld = large_ld(m);
-  T* S = reinterpret_cast<T*>(large_smem) + warp * large_warp_elems(m);  // S_raw, row-major
-  T* X = S + m * m;   // L, then S^-1 (lower triangle)
-  T* Y = X + m * ld;  // L^-1 (lower triangle), then U
-  const int64_t mm = static_cast<int64_t>(m) * m;
-  warp_copy(S, s_raw + b * mm, m * m, lane);
-  const int64_t act = __ldg(reinterpret_cast<const long long*>(action) + b);
-  const T r_row = lane < m ? __ldg(r_table + act * m + lane) : T(0);
-
-  // L of S = 0.5 (S_raw + S_raw^T) + diag(R); s(i, j) is asked of lane i
-  warp_cholesky_rt(
-      [&](int i, int j) {
-        return T(0.5) * (S[i * m + j] + S[j * m + i]) + (i == j ? r_row : T(0));
-      },
-      m, X, ld, lane);
-  warp_invert_lower(X, m, Y, ld, lane);
-  for (int e = lane; e < m * (m + 1) / 2; e += 32) {
-    int i, j;
-    packed_pair(e, i, j);
-    X[i * ld + j] = inverse_entry_rt(Y, m, ld, i, j);
-  }
-  __syncwarp();
-  // U = chol(S^-1) into Y, zeros above the diagonal
-  warp_cholesky_rt([&](int i, int j) { return X[i * ld + j]; }, m, Y, ld, lane);
-
-  // WcT = U^T A, the squares and this lane's share of the gain; A is read
-  // from global memory, the lanes on consecutive columns
-  const T* A = a_blk + b * m * static_cast<int64_t>(n);
-  T* out = wct + b * m * static_cast<int64_t>(n);
-  const T* mrow = mask == nullptr ? nullptr : mask + b * mask_stride;
-  T g = T(0);
-  for (int c = 0, col = lane; col - lane < n; ++c, col += 32) {
-    T sq = T(0);
-    if (col < n) {
-      T a[kMaxWarpM];
-#pragma unroll
-      for (int k = 0; k < kMaxWarpM; ++k) a[k] = k < m ? __ldg(A + k * n + col) : T(0);
-      for (int r = 0; r < m; ++r) {
-        T acc = Y[r] * a[0];  // U[0][r] A[0][col]
-#pragma unroll
-        for (int k = 1; k < kMaxWarpM; ++k) {
-          if (k < m) acc = acc + Y[k * ld + r] * a[k];
-        }
-        if (round_bf16) acc = round_to_bf16(acc);
-        out[r * n + col] = acc;
-        sq = r == 0 ? acc * acc : sq + acc * acc;
-      }
-      if (mrow != nullptr) sq = sq * __ldg(mrow + col);
-    }
-    g = c == 0 ? sq : g + sq;
-  }
-#pragma unroll
-  for (int w = 16; w >= 1; w >>= 1) g = g + __shfl_xor_sync(kFullMask, g, w);
-  if (lane == 0) gain[b] = g;
 }
 
 // ---------------------------------------------------------------- warp route, unrolled
@@ -930,41 +851,24 @@ __device__ __forceinline__ T neg_quotient(T acc, T d) {
   return zero && d == d ? -acc : q;
 }
 
-// S^-1 of one M x M matrix per warp (13 <= M <= 32), M unrolled.  The
-// matrix is staged by cp.async (one commit, one wait); then
-//   Cholesky, column by column: lane i keeps row i of L in registers and
-//     writes L[i][j] to a shared copy of L once column j is done; column j
-//     reads row j of that copy by 16-byte broadcast loads; the pivot comes
-//     by shuffle from lane j;
-//   forward substitution: lane c keeps column c of L^-1 in registers and
-//     runs down it, row i of L by broadcast loads; every sum starts at -0
-//     (-0 + x = x), so the lanes' different first terms need no branch;
-//   S^-1: the lanes write their columns of L^-1 over the copy of L; lane j
-//     forms column j of S^-1, column i of L^-1 by broadcast loads, and
-//     writes (i, j) and (j, i) over the staged matrix, which the warp then
-//     stores with 16-byte stores.
-// Each sum in the plain version's order.  One warp per CTA, so a small
-// batch (B = 256 on the 2 m grid's commit) spreads over the SMs.
-template <int M, typename T>
-__global__ void __launch_bounds__(32)
-spd_inverse_rows_kernel(const T* __restrict__ s, T* __restrict__ out) {
-  constexpr int kMM = M * M;
-  constexpr int kLd = rows_ld(M);
-  __shared__ __align__(16) T smem[M * kLd + kMM + 16 / sizeof(T)];
-  T* lsh = smem;  // L, then L^-1 transposed (column c at lsh[c * kLd])
-  const int lane = static_cast<int>(threadIdx.x);
-  const int64_t off = static_cast<int64_t>(blockIdx.x) * kMM;
-  T* buf = smem + M * kLd + align_offset<T>(s + off);
-  warp_stage_async(buf, s + off, kMM, lane);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncwarp();
+// The warp route's row kernels (13 <= M <= 32, M unrolled): one warp per
+// matrix, lane i keeping row i of a factor in registers (lanes past M - 1
+// repeat row M - 1 and store nothing), another lane's row or column read
+// from a shared copy (rows of rows_ld(M) elements) by 16-byte broadcast
+// loads.  Each sum in the plain version's order.
 
-  const int row = lane < M ? lane : M - 1;  // lanes past M repeat row M - 1
-  T Lrow[M];
+// Cholesky, column by column: for column j, lane `row` forms s(j), its entry
+// (row, j), minus L[row][k] L[j][k] for k < j in order (row j of the copy by
+// broadcast), takes the pivot by shuffle from lane j, and writes L[row][j]
+// to the copy once the column is done.  Lrow and the copy's rows get zeros
+// above the diagonal.
+template <int M, typename T, typename Entry>
+__device__ __forceinline__ void rows_cholesky(const Entry& s, T* lsh, int row, int lane,
+                                              T (&Lrow)[M]) {
+  constexpr int kLd = rows_ld(M);
 #pragma unroll
   for (int j = 0; j < M; ++j) {
-    T acc = buf[row * M + j];
+    T acc = s(j);
 #pragma unroll
     for (int k4 = 0; k4 < j; k4 += 4) {
       T v[4];
@@ -980,8 +884,15 @@ spd_inverse_rows_kernel(const T* __restrict__ s, T* __restrict__ out) {
     if (lane < M) lsh[row * kLd + j] = Lrow[j];
     __syncwarp();
   }
+}
 
-  T Lic[M];  // column `row` of L^-1: Lic[i] = L^-1[i][row] for i >= row
+// forward substitution on the copy of L: lane `row` keeps column `row` of
+// L^-1 in registers (Lic[i] = L^-1[i][row] for i >= row) and runs down it,
+// row i of L by broadcast loads; every sum starts at -0 (-0 + x = x), so
+// the lanes' different first terms need no branch
+template <int M, typename T>
+__device__ __forceinline__ void rows_invert_lower(const T* lsh, int row, T (&Lic)[M]) {
+  constexpr int kLd = rows_ld(M);
 #pragma unroll
   for (int i = 0; i < M; ++i) {
     T acc = T(-0.0);
@@ -999,8 +910,17 @@ spd_inverse_rows_kernel(const T* __restrict__ s, T* __restrict__ out) {
     }
     Lic[i] = row == i ? T(1) / lii : neg_quotient(acc, lii);
   }
+}
 
-  __syncwarp();  // every lane has read L and S
+// S^-1 = L^-T L^-1 into buf (row-major M x M, both triangles): the lanes
+// write their columns of L^-1 over the copy of L (column c at lsh[c * kLd]),
+// then lane j forms column j of S^-1, column i of L^-1 by broadcast loads,
+// and writes (i, j) and (j, i) for i >= j
+template <int M, typename T>
+__device__ __forceinline__ void rows_inverse_entries(T* lsh, int row, int lane, const T (&Lic)[M],
+                                                     T* buf) {
+  constexpr int kLd = rows_ld(M);
+  __syncwarp();  // every lane has read L and buf
   if (lane < M) {
 #pragma unroll
     for (int k = 0; k < M; ++k) {
@@ -1027,7 +947,182 @@ spd_inverse_rows_kernel(const T* __restrict__ s, T* __restrict__ out) {
     }
   }
   __syncwarp();
+}
+
+// shared memory of a row kernel: the copy of a factor, then the staged
+// matrix (M * M) at the staging source's offset modulo 16 bytes
+template <int M, typename T>
+struct RowsSmem {
+  static constexpr int kLd = rows_ld(M);
+  static constexpr int elems = M * kLd + M * M + 16 / static_cast<int>(sizeof(T));
+};
+
+// S^-1 of one M x M matrix per warp.  The matrix is staged by cp.async (one
+// commit, one wait); the Cholesky factor, L^-1 and S^-1 as above; S^-1 is
+// written over the staged matrix, which the warp then stores with 16-byte
+// stores.  One warp per CTA, so a small batch (B = 256 on the 2 m grid's
+// commit) spreads over the SMs.
+template <int M, typename T>
+__global__ void __launch_bounds__(32)
+spd_inverse_rows_kernel(const T* __restrict__ s, T* __restrict__ out) {
+  constexpr int kMM = M * M;
+  __shared__ __align__(16) T smem[RowsSmem<M, T>::elems];
+  T* lsh = smem;
+  const int lane = static_cast<int>(threadIdx.x);
+  const int64_t off = static_cast<int64_t>(blockIdx.x) * kMM;
+  T* buf = smem + M * rows_ld(M) + align_offset<T>(s + off);
+  warp_stage_async(buf, s + off, kMM, lane);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncwarp();
+
+  const int row = lane < M ? lane : M - 1;
+  T Lrow[M];
+  rows_cholesky<M>([&](int j) { return buf[row * M + j]; }, lsh, row, lane, Lrow);
+  T Lic[M];
+  rows_invert_lower<M>(lsh, row, Lic);
+  rows_inverse_entries<M>(lsh, row, lane, Lic, buf);
   warp_store(out + off, buf, kMM, lane);
+}
+
+// the row stride of U^T in edge_factor_gain's global workspace at M = 13..32
+constexpr int kWarpLdu = 32;
+
+// S^-1 and U = chol(S^-1) of one M x M matrix per warp, for
+// spd_inverse_factor's warp route and for edge_factor_gain's part 1 (one
+// kernel for both, so the build compiles it once per M and dtype):
+// spd_inverse_rows_kernel, then a second rows_cholesky on S^-1's lower
+// triangle (the staged buffer) into the copy.
+//   spd_inverse_factor (r_table == nullptr): S as staged; S^-1 stored to
+//     inv, U to chol (row-major, zeros above the diagonal).
+//   edge_factor_gain (r_table set): S = 0.5 (S_raw + S_raw^T) + diag(R[a]),
+//     formed while the first Cholesky reads the staged S_raw; only U^T
+//     stored, dense to ut (rows of kWarpLdu elements, ut[m][k] = U[k][m],
+//     zeros below the diagonal and in the padding), one coalesced row at a
+//     time.
+template <int M, typename T>
+__global__ void __launch_bounds__(32)
+factor_rows_kernel(const T* __restrict__ s, const T* __restrict__ r_table,
+                   const int64_t* __restrict__ action, T* __restrict__ inv,
+                   T* __restrict__ chol, T* __restrict__ ut) {
+  constexpr int kMM = M * M;
+  constexpr int kLd = rows_ld(M);
+  __shared__ __align__(16) T smem[RowsSmem<M, T>::elems];
+  T* lsh = smem;
+  const int lane = static_cast<int>(threadIdx.x);
+  const int64_t b = blockIdx.x;
+  const int64_t off = b * kMM;
+  T* buf = smem + M * kLd + align_offset<T>(s + off);
+  warp_stage_async(buf, s + off, kMM, lane);
+  cp_async_commit();
+  const int row = lane < M ? lane : M - 1;
+  const bool edge = r_table != nullptr;
+  T r_row = T(0);
+  if (edge) {
+    const int64_t act = __ldg(reinterpret_cast<const long long*>(action) + b);
+    r_row = __ldg(r_table + act * M + row);
+  }
+  cp_async_wait<0>();
+  __syncwarp();
+
+  T F[M];  // row `row` of L, then column `row` of L^-1, then row `row` of U
+  rows_cholesky<M>(
+      [&](int j) {
+        return edge ? T(0.5) * (buf[row * M + j] + buf[j * M + row]) + (row == j ? r_row : T(0))
+                    : buf[row * M + j];
+      },
+      lsh, row, lane, F);
+  rows_invert_lower<M>(lsh, row, F);
+  rows_inverse_entries<M>(lsh, row, lane, F, buf);
+  if (!edge) warp_store(inv + off, buf, kMM, lane);
+  rows_cholesky<M>([&](int j) { return buf[row * M + j]; }, lsh, row, lane, F);
+  if (!edge) {
+    for (int e = lane; e < kMM; e += 32) chol[off + e] = lsh[(e / M) * kLd + e % M];
+    return;
+  }
+  T* ub = ut + b * (M * kWarpLdu);
+#pragma unroll 4
+  for (int m = 0; m < M; ++m) ub[m * kWarpLdu + lane] = lane < M ? lsh[lane * kLd + m] : T(0);
+}
+
+// threads of edge_columns_kernel: one column of A each, in passes over N
+constexpr int kColumnsThreads = 256;
+
+// edge_factor_gain's warp route, parts 2 and 3 in one kernel: per mission,
+// WcT = U^T A, the squares, the mask and the gain.  One CTA per mission, a
+// thread per column of A (passes of kColumnsThreads columns).  U^T is
+// staged into shared memory (rows of rows_ld(M)), the thread keeps its
+// column of A in registers (coalesced loads along N) and forms its column
+// of WcT row by row, each sum over k = 0..M-1 in order from -0 with U's
+// zeros kept (the _small_mm order; row m reads U^T's row m by 16-byte
+// broadcast loads); then the bf16 round trip, the store (coalesced along
+// N), and the square added to the column's sum in row order, in registers.
+// The masked sums of a pass go to shared memory, and warp 0's lane l adds
+// columns l, l + 32, ... in turn (the warp order; zero past N), then the
+// xor tree, so the gain is the other routes' bit for bit.  Against the CTA
+// route's tiled product and gain kernels, no tile of squares is staged, no
+// sums cross threads but the gain's, and no (B, N) scratch is written.
+template <int M, typename T>
+__global__ void __launch_bounds__(kColumnsThreads)
+edge_columns_kernel(const T* __restrict__ ut, const T* __restrict__ a_blk,
+                    const T* __restrict__ mask, int64_t mask_stride, T* __restrict__ wct,
+                    T* __restrict__ gain, int n, int round_bf16) {
+  constexpr int kLd = rows_ld(M);
+  __shared__ __align__(16) T us[M * kLd];  // us[m * kLd + k] = U[k][m]
+  __shared__ T sqs[kColumnsThreads];
+  const int tid = static_cast<int>(threadIdx.x);
+  const int lane = tid & 31;
+  const int64_t b = blockIdx.x;
+  const T* ub = ut + b * (M * kWarpLdu);
+  for (int e = tid; e < M * kLd; e += kColumnsThreads) {
+    us[e] = ub[(e / kLd) * kWarpLdu + e % kLd];  // kLd <= kWarpLdu: the padding's zeros
+  }
+  __syncthreads();
+  const T* ab = a_blk + b * M * static_cast<int64_t>(n);
+  T* ob = wct + b * M * static_cast<int64_t>(n);
+  const T* mrow = mask == nullptr ? nullptr : mask + b * mask_stride;
+  T g = T(0);  // warp 0: lane's running sum of the warp order
+  for (int c0 = 0; c0 < n; c0 += kColumnsThreads) {
+    const int col = c0 + tid;
+    T sq = T(0);
+    if (col < n) {
+      T a[M];
+#pragma unroll
+      for (int k = 0; k < M; ++k) a[k] = __ldg(ab + static_cast<int64_t>(k) * n + col);
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        T acc = T(-0.0);
+#pragma unroll
+        for (int k4 = 0; k4 < M; k4 += 4) {
+          T v[4];
+          load4(us + m * kLd + k4, v);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            if (k4 + u < M) acc = acc + v[u] * a[k4 + u];
+          }
+        }
+        if (round_bf16) acc = round_to_bf16(acc);
+        ob[static_cast<int64_t>(m) * n + col] = acc;
+        sq = m == 0 ? acc * acc : sq + acc * acc;
+      }
+      if (mrow != nullptr) sq = sq * __ldg(mrow + col);
+    }
+    sqs[tid] = sq;
+    __syncthreads();
+    if (tid < 32) {
+#pragma unroll
+      for (int w = 0; w < kColumnsThreads / 32; ++w) {
+        const int chunk = c0 / 32 + w;
+        if (32 * chunk < n) g = chunk == 0 ? sqs[w * 32 + lane] : g + sqs[w * 32 + lane];
+      }
+    }
+    __syncthreads();  // warp 0 has read the pass before the next overwrites it
+  }
+  if (tid < 32) {
+#pragma unroll
+    for (int w = 16; w >= 1; w >>= 1) g = g + __shfl_xor_sync(kFullMask, g, w);
+    if (lane == 0) gain[b] = g;
+  }
 }
 
 // The lane-per-block trace product's three passes over a lane's packed
@@ -2284,17 +2379,6 @@ int launch_inverse_large(const void* s, void* out, int64_t n, int m, cudaStream_
 }
 
 template <typename T>
-int launch_inverse_factor_large(const void* s, void* inv, void* chol, int64_t n, int m,
-                                cudaStream_t stream) {
-  size_t bytes;
-  auto kernel = spd_inverse_factor_large_kernel<T>;
-  if (int err = large_smem_bytes(kernel, large_warp_elems(m), sizeof(T), &bytes)) return err;
-  kernel<<<large_blocks(n), kLargeWarps * 32, bytes, stream>>>(
-      static_cast<const T*>(s), static_cast<T*>(inv), static_cast<T*>(chol), n, m);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
 int launch_trace_large(const void* s, const void* g, void* out, int64_t outer, int64_t inner,
                        int m, cudaStream_t stream) {
   size_t bytes;
@@ -2306,35 +2390,94 @@ int launch_trace_large(const void* s, const void* g, void* out, int64_t outer, i
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_edge_large(const void* s, const void* a_blk, const void* r, const void* action,
-                      const void* mask, int64_t mask_stride, void* wct, void* gain,
-                      int64_t n_missions, int n, int m, int round_bf16, cudaStream_t stream) {
-  size_t bytes;
-  auto kernel = edge_factor_gain_large_kernel<T>;
-  if (int err = large_smem_bytes(kernel, large_warp_elems(m), sizeof(T), &bytes)) return err;
-  kernel<<<large_blocks(n_missions), kLargeWarps * 32, bytes, stream>>>(
-      static_cast<const T*>(s), static_cast<const T*>(a_blk), static_cast<const T*>(r),
-      static_cast<const int64_t*>(action), static_cast<const T*>(mask), mask_stride,
-      static_cast<T*>(wct), static_cast<T*>(gain), n_missions, n, m, round_bf16);
+}  // namespace
+
+// The kernels unrolled for each M (the register route's and the warp
+// route's), compiled in one source, would take minutes: the compiler works
+// through one source's kernels one after another.  So ops/kernels.py
+// compiles this source in parts, all at once: SMALLCHOL_PART = 0 holds
+// every other kernel and the C interface and takes these launchers from
+// the other parts, part p >= 1 instantiates some of them for its range of M
+// (below).  Compiled without SMALLCHOL_PART, the source holds everything.
+namespace smallchol_unrolled {
+
+// the register route (M = 1..kMaxUnrolledM)
+template <int M, typename T>
+int launch_inverse(const void* s, void* out, int64_t n, cudaStream_t stream) {
+  const unsigned blocks = static_cast<unsigned>((n + kInverseTile - 1) / kInverseTile);
+  spd_inverse_kernel<M, T><<<blocks, kInverseTile, 0, stream>>>(
+      static_cast<const T*>(s), static_cast<T*>(out), n);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
+template <int M, typename T>
+int launch_inverse_factor(const void* s, void* inv, void* chol, int64_t n,
+                          cudaStream_t stream) {
+  const unsigned blocks = static_cast<unsigned>((n + kInverseTile - 1) / kInverseTile);
+  spd_inverse_factor_kernel<M, T><<<blocks, kInverseTile, 0, stream>>>(
+      static_cast<const T*>(s), static_cast<T*>(inv), static_cast<T*>(chol), n);
+  return static_cast<int>(cudaGetLastError());
+}
 
-// The warp route's unrolled kernels, one pair of kernels per M and dtype,
-// would make ptxas, which compiles one source's kernels one after another,
-// take most of a minute.  So ops/kernels.py compiles this source in parts,
-// all at once: SMALLCHOL_PART = 0 holds every other kernel and the C
-// interface and takes these launchers from the other parts, part p >= 1
-// instantiates them for its range of M (below).  Compiled without
-// SMALLCHOL_PART, the source holds everything.
-namespace smallchol_unrolled {
+template <int M, typename T>
+int launch_trace(const void* s, const void* g, void* out, int64_t outer, int64_t inner,
+                 cudaStream_t stream) {
+  const unsigned blocks =
+      static_cast<unsigned>((outer * inner + kTraceThreads - 1) / kTraceThreads);
+  spd_trace_product_kernel<M, T><<<blocks, kTraceThreads, 0, stream>>>(
+      static_cast<const T*>(s), static_cast<const T*>(g), static_cast<T*>(out), outer, inner);
+  return static_cast<int>(cudaGetLastError());
+}
 
+// cudaSuccess, a cudaError_t, or -1 when the shared slices of N columns do
+// not fit a CTA (nothing launched)
+template <int M, typename T>
+int launch_edge(const void* s, const void* a_blk, const void* r, const void* action,
+                const void* mask, int64_t mask_stride, void* wct, void* gain, int64_t n_missions,
+                int n, int round_bf16, cudaStream_t stream) {
+  const int64_t bytes = edge_register_bytes<T>(M, n);
+  if (bytes > kMaxSharedBytes) return -1;
+  auto kernel = edge_factor_gain_kernel<M, T>;
+  if (int err = allow_shared(kernel, static_cast<size_t>(bytes))) return err;
+  const unsigned blocks = static_cast<unsigned>((n_missions + kEdgeWarps - 1) / kEdgeWarps);
+  kernel<<<blocks, kEdgeWarps * 32, static_cast<size_t>(bytes), stream>>>(
+      static_cast<const T*>(s), static_cast<const T*>(a_blk), static_cast<const T*>(r),
+      static_cast<const int64_t*>(action), static_cast<const T*>(mask), mask_stride,
+      static_cast<T*>(wct), static_cast<T*>(gain), n_missions, n, round_bf16);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the warp route (M = 13..32)
 template <int M, typename T>
 int launch_inverse_rows(const void* s, void* out, int64_t n, cudaStream_t stream) {
   spd_inverse_rows_kernel<M, T><<<static_cast<unsigned>(n), 32, 0, stream>>>(
       static_cast<const T*>(s), static_cast<T*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int M, typename T>
+int launch_inverse_factor_rows(const void* s, void* inv, void* chol, int64_t n,
+                               cudaStream_t stream) {
+  factor_rows_kernel<M, T><<<static_cast<unsigned>(n), 32, 0, stream>>>(
+      static_cast<const T*>(s), nullptr, nullptr, static_cast<T*>(inv), static_cast<T*>(chol),
+      nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// edge_factor_gain's warp route with the unrolled kernels: U^T into the
+// caller's workspace `ut` (n_missions x M x kWarpLdu), then WcT and the gain
+template <int M, typename T>
+int launch_edge_rows(const void* s, const void* a_blk, const void* r, const void* action,
+                     const void* mask, int64_t mask_stride, void* wct, void* gain,
+                     int64_t n_missions, int n, int round_bf16, void* ut, cudaStream_t stream) {
+  const unsigned blocks = static_cast<unsigned>(n_missions);
+  factor_rows_kernel<M, T><<<blocks, 32, 0, stream>>>(
+      static_cast<const T*>(s), static_cast<const T*>(r), static_cast<const int64_t*>(action),
+      nullptr, nullptr, static_cast<T*>(ut));
+  if (int err = static_cast<int>(cudaGetLastError())) return err;
+  edge_columns_kernel<M, T><<<blocks, kColumnsThreads, 0, stream>>>(
+      static_cast<const T*>(ut), static_cast<const T*>(a_blk), static_cast<const T*>(mask),
+      mask_stride, static_cast<T*>(wct), static_cast<T*>(gain), n, round_bf16);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2351,7 +2494,9 @@ int launch_trace_lanes(const void* s, const void* g, void* out, int64_t outer, i
 
 }  // namespace smallchol_unrolled
 
-#define SMALLCHOL_UNROLLED(KEYWORD, M)                                                        \
+// the launchers of K1's and K2's unrolled kernels for one M, and those of
+// K3's and edge_factor_gain's
+#define SMALLCHOL_UNROLLED_PAIR(KEYWORD, M)                                                   \
   KEYWORD int smallchol_unrolled::launch_inverse_rows<M, float>(const void*, void*, int64_t,  \
                                                                 cudaStream_t);                \
   KEYWORD int smallchol_unrolled::launch_inverse_rows<M, double>(const void*, void*, int64_t, \
@@ -2360,38 +2505,106 @@ int launch_trace_lanes(const void* s, const void* g, void* out, int64_t outer, i
       const void*, const void*, void*, int64_t, int64_t, cudaStream_t);                       \
   KEYWORD int smallchol_unrolled::launch_trace_lanes<M, double>(                              \
       const void*, const void*, void*, int64_t, int64_t, cudaStream_t);
+#define SMALLCHOL_UNROLLED_FACTOR(KEYWORD, M)                                                 \
+  KEYWORD int smallchol_unrolled::launch_inverse_factor_rows<M, float>(                       \
+      const void*, void*, void*, int64_t, cudaStream_t);                                      \
+  KEYWORD int smallchol_unrolled::launch_inverse_factor_rows<M, double>(                      \
+      const void*, void*, void*, int64_t, cudaStream_t);                                      \
+  KEYWORD int smallchol_unrolled::launch_edge_rows<M, float>(                                 \
+      const void*, const void*, const void*, const void*, const void*, int64_t, void*, void*, \
+      int64_t, int, int, void*, cudaStream_t);                                                \
+  KEYWORD int smallchol_unrolled::launch_edge_rows<M, double>(                                \
+      const void*, const void*, const void*, const void*, const void*, int64_t, void*, void*, \
+      int64_t, int, int, void*, cudaStream_t);
+#define SMALLCHOL_UNROLLED(KEYWORD, M) \
+  SMALLCHOL_UNROLLED_PAIR(KEYWORD, M) SMALLCHOL_UNROLLED_FACTOR(KEYWORD, M)
+// the launchers of the register route's four kernels for one M
+#define SMALLCHOL_REGISTER(KEYWORD, M)                                                        \
+  KEYWORD int smallchol_unrolled::launch_inverse<M, float>(const void*, void*, int64_t,       \
+                                                           cudaStream_t);                     \
+  KEYWORD int smallchol_unrolled::launch_inverse<M, double>(const void*, void*, int64_t,      \
+                                                            cudaStream_t);                    \
+  KEYWORD int smallchol_unrolled::launch_inverse_factor<M, float>(const void*, void*, void*,  \
+                                                                  int64_t, cudaStream_t);     \
+  KEYWORD int smallchol_unrolled::launch_inverse_factor<M, double>(const void*, void*, void*, \
+                                                                   int64_t, cudaStream_t);    \
+  KEYWORD int smallchol_unrolled::launch_trace<M, float>(const void*, const void*, void*,     \
+                                                         int64_t, int64_t, cudaStream_t);     \
+  KEYWORD int smallchol_unrolled::launch_trace<M, double>(const void*, const void*, void*,    \
+                                                          int64_t, int64_t, cudaStream_t);    \
+  KEYWORD int smallchol_unrolled::launch_edge<M, float>(                                      \
+      const void*, const void*, const void*, const void*, const void*, int64_t, void*, void*, \
+      int64_t, int, int, cudaStream_t);                                                       \
+  KEYWORD int smallchol_unrolled::launch_edge<M, double>(                                     \
+      const void*, const void*, const void*, const void*, const void*, int64_t, void*, void*, \
+      int64_t, int, int, cudaStream_t);
 
-// the parts' ranges of M, about equal in compile time (the code grows as M^2)
-// part p >= 1 instantiates the launchers for its range of M, about equal
-// in compile time (the code grows as M^2); part 0 declares them all
+// Part p = 1..6 instantiates K1's and K2's launchers for its range of M,
+// part p + 6 K3's and the edge update's for the same range; the ranges are
+// about equal in compile time (the code grows with M).  Parts 13 and 14
+// hold the register route's (M = 1..10, 11..12: its code grows as M^3).
+// Part 0 declares them all.
 #if !defined(SMALLCHOL_PART)
 #define SMALLCHOL_PART_HAS(P) 1
 #else
 #define SMALLCHOL_PART_HAS(P) (SMALLCHOL_PART == (P))
 #endif
 #if SMALLCHOL_PART_HAS(1)
-SMALLCHOL_UNROLLED(template, 13) SMALLCHOL_UNROLLED(template, 14)
-SMALLCHOL_UNROLLED(template, 15) SMALLCHOL_UNROLLED(template, 16)
-SMALLCHOL_UNROLLED(template, 17)
+SMALLCHOL_UNROLLED_PAIR(template, 13) SMALLCHOL_UNROLLED_PAIR(template, 14)
+SMALLCHOL_UNROLLED_PAIR(template, 15) SMALLCHOL_UNROLLED_PAIR(template, 16)
+SMALLCHOL_UNROLLED_PAIR(template, 17)
 #endif
 #if SMALLCHOL_PART_HAS(2)
-SMALLCHOL_UNROLLED(template, 18) SMALLCHOL_UNROLLED(template, 19)
-SMALLCHOL_UNROLLED(template, 20) SMALLCHOL_UNROLLED(template, 21)
+SMALLCHOL_UNROLLED_PAIR(template, 18) SMALLCHOL_UNROLLED_PAIR(template, 19)
+SMALLCHOL_UNROLLED_PAIR(template, 20) SMALLCHOL_UNROLLED_PAIR(template, 21)
 #endif
 #if SMALLCHOL_PART_HAS(3)
-SMALLCHOL_UNROLLED(template, 22) SMALLCHOL_UNROLLED(template, 23)
-SMALLCHOL_UNROLLED(template, 24)
+SMALLCHOL_UNROLLED_PAIR(template, 22) SMALLCHOL_UNROLLED_PAIR(template, 23)
+SMALLCHOL_UNROLLED_PAIR(template, 24)
 #endif
 #if SMALLCHOL_PART_HAS(4)
-SMALLCHOL_UNROLLED(template, 25) SMALLCHOL_UNROLLED(template, 26)
-SMALLCHOL_UNROLLED(template, 27)
+SMALLCHOL_UNROLLED_PAIR(template, 25) SMALLCHOL_UNROLLED_PAIR(template, 26)
+SMALLCHOL_UNROLLED_PAIR(template, 27)
 #endif
 #if SMALLCHOL_PART_HAS(5)
-SMALLCHOL_UNROLLED(template, 28) SMALLCHOL_UNROLLED(template, 29)
-SMALLCHOL_UNROLLED(template, 30)
+SMALLCHOL_UNROLLED_PAIR(template, 28) SMALLCHOL_UNROLLED_PAIR(template, 29)
+SMALLCHOL_UNROLLED_PAIR(template, 30)
 #endif
 #if SMALLCHOL_PART_HAS(6)
-SMALLCHOL_UNROLLED(template, 31) SMALLCHOL_UNROLLED(template, 32)
+SMALLCHOL_UNROLLED_PAIR(template, 31) SMALLCHOL_UNROLLED_PAIR(template, 32)
+#endif
+#if SMALLCHOL_PART_HAS(7)
+SMALLCHOL_UNROLLED_FACTOR(template, 13) SMALLCHOL_UNROLLED_FACTOR(template, 14)
+SMALLCHOL_UNROLLED_FACTOR(template, 15) SMALLCHOL_UNROLLED_FACTOR(template, 16)
+SMALLCHOL_UNROLLED_FACTOR(template, 17)
+#endif
+#if SMALLCHOL_PART_HAS(8)
+SMALLCHOL_UNROLLED_FACTOR(template, 18) SMALLCHOL_UNROLLED_FACTOR(template, 19)
+SMALLCHOL_UNROLLED_FACTOR(template, 20) SMALLCHOL_UNROLLED_FACTOR(template, 21)
+#endif
+#if SMALLCHOL_PART_HAS(9)
+SMALLCHOL_UNROLLED_FACTOR(template, 22) SMALLCHOL_UNROLLED_FACTOR(template, 23)
+SMALLCHOL_UNROLLED_FACTOR(template, 24)
+#endif
+#if SMALLCHOL_PART_HAS(10)
+SMALLCHOL_UNROLLED_FACTOR(template, 25) SMALLCHOL_UNROLLED_FACTOR(template, 26)
+SMALLCHOL_UNROLLED_FACTOR(template, 27)
+#endif
+#if SMALLCHOL_PART_HAS(11)
+SMALLCHOL_UNROLLED_FACTOR(template, 28) SMALLCHOL_UNROLLED_FACTOR(template, 29)
+SMALLCHOL_UNROLLED_FACTOR(template, 30)
+#endif
+#if SMALLCHOL_PART_HAS(12)
+SMALLCHOL_UNROLLED_FACTOR(template, 31) SMALLCHOL_UNROLLED_FACTOR(template, 32)
+#endif
+#if SMALLCHOL_PART_HAS(13)
+SMALLCHOL_REGISTER(template, 1) SMALLCHOL_REGISTER(template, 2) SMALLCHOL_REGISTER(template, 3)
+SMALLCHOL_REGISTER(template, 4) SMALLCHOL_REGISTER(template, 5) SMALLCHOL_REGISTER(template, 6)
+SMALLCHOL_REGISTER(template, 7) SMALLCHOL_REGISTER(template, 8) SMALLCHOL_REGISTER(template, 9)
+SMALLCHOL_REGISTER(template, 10)
+#endif
+#if SMALLCHOL_PART_HAS(14)
+SMALLCHOL_REGISTER(template, 11) SMALLCHOL_REGISTER(template, 12)
 #endif
 
 #if !defined(SMALLCHOL_PART) || SMALLCHOL_PART == 0
@@ -2406,31 +2619,45 @@ SMALLCHOL_UNROLLED(extern template, 25) SMALLCHOL_UNROLLED(extern template, 26)
 SMALLCHOL_UNROLLED(extern template, 27) SMALLCHOL_UNROLLED(extern template, 28)
 SMALLCHOL_UNROLLED(extern template, 29) SMALLCHOL_UNROLLED(extern template, 30)
 SMALLCHOL_UNROLLED(extern template, 31) SMALLCHOL_UNROLLED(extern template, 32)
+SMALLCHOL_REGISTER(extern template, 1) SMALLCHOL_REGISTER(extern template, 2)
+SMALLCHOL_REGISTER(extern template, 3) SMALLCHOL_REGISTER(extern template, 4)
+SMALLCHOL_REGISTER(extern template, 5) SMALLCHOL_REGISTER(extern template, 6)
+SMALLCHOL_REGISTER(extern template, 7) SMALLCHOL_REGISTER(extern template, 8)
+SMALLCHOL_REGISTER(extern template, 9) SMALLCHOL_REGISTER(extern template, 10)
+SMALLCHOL_REGISTER(extern template, 11) SMALLCHOL_REGISTER(extern template, 12)
 #endif
 
 namespace {
 
-// Which kernels take the warp route's M (13..32) for spd_inverse and
-// spd_trace_product: by default the unrolled kernels (spd_inverse_rows_kernel,
-// spd_trace_product_lanes_kernel) where the H100 ran them faster than the
-// runtime-M kernels (spd_inverse_large_kernel, spd_trace_product_large_kernel),
-// the runtime-M kernels elsewhere (kUnrolledMaxM); kWarpRouteRuntimeM and
-// kWarpRouteUnrolled force one kind at every M, so that the tests hold both
-// against the plain versions and the chip check times one against the other.
+// Which kernels take spd_inverse's and spd_trace_product's launches at the
+// warp route's M (13..32): by default the unrolled kernels
+// (spd_inverse_rows_kernel, spd_trace_product_lanes_kernel) where the H100
+// ran them faster than the runtime-M kernels (spd_inverse_large_kernel,
+// spd_trace_product_large_kernel), the runtime-M kernels elsewhere
+// (kUnrolledMaxM); kWarpRouteRuntimeM and kWarpRouteUnrolled force one kind
+// at every M, so that the tests hold both against the plain versions and
+// the chip check times one against the other.  spd_inverse_factor and
+// edge_factor_gain have the unrolled kind only (factor_rows_kernel, and
+// edge_columns_kernel after it).
 enum { kWarpRouteDefault = 0, kWarpRouteRuntimeM = 1, kWarpRouteUnrolled = 2 };
 int g_warp_route = kWarpRouteDefault;
 
-// the largest M at which the default takes the unrolled kernel, by dtype
-// (float32, float64): spd_inverse, then spd_trace_product.  Timed on an
-// H100 by scripts/time_torch_warp_route.py, every M = 13..32: the unrolled
-// kernels ran faster everywhere but the trace product at M = 32 in float64,
-// where a lane's triangle (135 KB a warp) leaves one warp per SM.
+// the `kind` codes of smallchol_workspace_bytes
+enum { kInverseKernel = 0, kInverseFactorKernel = 1, kTraceKernel = 2, kEdgeKernel = 3 };
+
+// the largest M at which the default takes the unrolled kernel, for
+// spd_inverse and spd_trace_product (rows) and float32, float64 (columns).
+// Timed on an H100 by scripts/time_torch_warp_route.py, every M = 13..32:
+// the unrolled K1 ran faster everywhere, the lane K2 everywhere but at
+// M = 32 in float64, where a lane's triangle (135 KB a warp) leaves one
+// warp per SM.
 constexpr int kUnrolledMaxM[2][2] = {{kMaxWarpM, kMaxWarpM}, {kMaxWarpM, kMaxWarpM - 1}};
 
+// kernel: kInverseKernel or kTraceKernel
 template <typename T>
 bool takes_unrolled(int kernel, int m) {
   if (g_warp_route != kWarpRouteDefault) return g_warp_route == kWarpRouteUnrolled;
-  return m <= kUnrolledMaxM[kernel][sizeof(T) == 8 ? 1 : 0];
+  return m <= kUnrolledMaxM[kernel == kTraceKernel ? 1 : 0][sizeof(T) == 8 ? 1 : 0];
 }
 
 // calls f.template run<M, T>() for the warp route's M = 13..32
@@ -2468,6 +2695,24 @@ struct InverseRows {
   }
 };
 
+struct InverseFactorRows {
+  const void* s; void* inv; void* chol; int64_t n; cudaStream_t stream;
+  template <int M, typename T> int run() const {
+    return smallchol_unrolled::launch_inverse_factor_rows<M, T>(s, inv, chol, n, stream);
+  }
+};
+
+struct EdgeRows {
+  const void* s; const void* a_blk; const void* r; const void* action; const void* mask;
+  int64_t mask_stride; void* wct; void* gain; int64_t n_missions; int n; int round_bf16;
+  void* ut; cudaStream_t stream;
+  template <int M, typename T> int run() const {
+    return smallchol_unrolled::launch_edge_rows<M, T>(s, a_blk, r, action, mask, mask_stride,
+                                                      wct, gain, n_missions, n, round_bf16, ut,
+                                                      stream);
+  }
+};
+
 struct TraceLanes {
   const void* s; const void* g; void* out; int64_t outer; int64_t inner; cudaStream_t stream;
   template <int M, typename T> int run() const {
@@ -2475,46 +2720,11 @@ struct TraceLanes {
   }
 };
 
-template <int M, typename T>
-void launch_inverse(const void* s, void* out, int64_t n, cudaStream_t stream) {
-  const unsigned blocks = static_cast<unsigned>((n + kInverseTile - 1) / kInverseTile);
-  spd_inverse_kernel<M, T><<<blocks, kInverseTile, 0, stream>>>(
-      static_cast<const T*>(s), static_cast<T*>(out), n);
-}
-
-template <int M, typename T>
-void launch_inverse_factor(const void* s, void* inv, void* chol, int64_t n,
-                           cudaStream_t stream) {
-  const unsigned blocks = static_cast<unsigned>((n + kInverseTile - 1) / kInverseTile);
-  spd_inverse_factor_kernel<M, T><<<blocks, kInverseTile, 0, stream>>>(
-      static_cast<const T*>(s), static_cast<T*>(inv), static_cast<T*>(chol), n);
-}
-
-template <int M, typename T>
-void launch_trace(const void* s, const void* g, void* out, int64_t outer, int64_t inner,
-                  cudaStream_t stream) {
-  const unsigned blocks =
-      static_cast<unsigned>((outer * inner + kTraceThreads - 1) / kTraceThreads);
-  spd_trace_product_kernel<M, T><<<blocks, kTraceThreads, 0, stream>>>(
-      static_cast<const T*>(s), static_cast<const T*>(g), static_cast<T*>(out), outer, inner);
-}
-
-// cudaSuccess, a cudaError_t, or -1 when the shared slices of N columns do
-// not fit a CTA (nothing launched)
-template <int M, typename T>
-int launch_edge(const void* s, const void* a_blk, const void* r, const void* action,
-                const void* mask, int64_t mask_stride, void* wct, void* gain, int64_t n_missions,
-                int n, int round_bf16, cudaStream_t stream) {
-  const int64_t bytes = edge_register_bytes<T>(M, n);
-  if (bytes > kMaxSharedBytes) return -1;
-  auto kernel = edge_factor_gain_kernel<M, T>;
-  if (int err = allow_shared(kernel, static_cast<size_t>(bytes))) return err;
-  const unsigned blocks = static_cast<unsigned>((n_missions + kEdgeWarps - 1) / kEdgeWarps);
-  kernel<<<blocks, kEdgeWarps * 32, static_cast<size_t>(bytes), stream>>>(
-      static_cast<const T*>(s), static_cast<const T*>(a_blk), static_cast<const T*>(r),
-      static_cast<const int64_t*>(action), static_cast<const T*>(mask), mask_stride,
-      static_cast<T*>(wct), static_cast<T*>(gain), n_missions, n, round_bf16);
-  return static_cast<int>(cudaGetLastError());
+// bytes of edge_factor_gain's global workspace on the warp route: U^T of
+// every mission, rows of kWarpLdu elements
+template <typename T>
+int64_t edge_rows_bytes(int m, int64_t n_missions) {
+  return round256(n_missions * m * static_cast<int64_t>(kWarpLdu) * sizeof(T));
 }
 
 // calls F::run<M, T>() for M = 1..kMaxUnrolledM, F::run_large<T>(m) for
@@ -2546,11 +2756,12 @@ int dispatch_m(int m, F f) {
 struct InverseLaunch {
   const void* s; void* out; int64_t n; void* workspace; cudaStream_t stream;
   template <int M, typename T> int run() const {
-    launch_inverse<M, T>(s, out, n, stream);
-    return static_cast<int>(cudaGetLastError());
+    return smallchol_unrolled::launch_inverse<M, T>(s, out, n, stream);
   }
   template <typename T> int run_large(int m) const {
-    if (takes_unrolled<T>(0, m)) return dispatch_warp_m<T>(m, InverseRows{s, out, n, stream});
+    if (takes_unrolled<T>(kInverseKernel, m)) {
+      return dispatch_warp_m<T>(m, InverseRows{s, out, n, stream});
+    }
     return launch_inverse_large<T>(s, out, n, m, stream);
   }
   template <typename T> int run_cta(int m) const {
@@ -2561,11 +2772,10 @@ struct InverseLaunch {
 struct InverseFactorLaunch {
   const void* s; void* inv; void* chol; int64_t n; void* workspace; cudaStream_t stream;
   template <int M, typename T> int run() const {
-    launch_inverse_factor<M, T>(s, inv, chol, n, stream);
-    return static_cast<int>(cudaGetLastError());
+    return smallchol_unrolled::launch_inverse_factor<M, T>(s, inv, chol, n, stream);
   }
   template <typename T> int run_large(int m) const {
-    return launch_inverse_factor_large<T>(s, inv, chol, n, m, stream);
+    return dispatch_warp_m<T>(m, InverseFactorRows{s, inv, chol, n, stream});
   }
   template <typename T> int run_cta(int m) const {
     return launch_inverse_factor_cta<T>(s, inv, chol, n, m, workspace, stream);
@@ -2576,11 +2786,10 @@ struct TraceLaunch {
   const void* s; const void* g; void* out; int64_t outer; int64_t inner; void* workspace;
   cudaStream_t stream;
   template <int M, typename T> int run() const {
-    launch_trace<M, T>(s, g, out, outer, inner, stream);
-    return static_cast<int>(cudaGetLastError());
+    return smallchol_unrolled::launch_trace<M, T>(s, g, out, outer, inner, stream);
   }
   template <typename T> int run_large(int m) const {
-    if (takes_unrolled<T>(1, m)) {
+    if (takes_unrolled<T>(kTraceKernel, m)) {
       return dispatch_warp_m<T>(m, TraceLanes{s, g, out, outer, inner, stream});
     }
     return launch_trace_large<T>(s, g, out, outer, inner, m, stream);
@@ -2597,13 +2806,15 @@ struct EdgeLaunch {
   // where the register route's shared slices of N columns do not fit a
   // CTA, the CTA route takes the launch (the same order of operations)
   template <int M, typename T> int run() const {
-    const int err = launch_edge<M, T>(s, a_blk, r, action, mask, mask_stride, wct, gain,
-                                      n_missions, n, round_bf16, stream);
+    const int err = smallchol_unrolled::launch_edge<M, T>(s, a_blk, r, action, mask, mask_stride,
+                                                          wct, gain, n_missions, n, round_bf16,
+                                                          stream);
     return err == -1 ? run_cta<T>(M) : err;
   }
   template <typename T> int run_large(int m) const {
-    return launch_edge_large<T>(s, a_blk, r, action, mask, mask_stride, wct, gain, n_missions,
-                                n, m, round_bf16, stream);
+    if (workspace == nullptr) return -2;
+    return dispatch_warp_m<T>(m, EdgeRows{s, a_blk, r, action, mask, mask_stride, wct, gain,
+                                          n_missions, n, round_bf16, workspace, stream});
   }
   template <typename T> int run_cta(int m) const {
     return launch_edge_cta<T>(s, a_blk, r, action, mask, mask_stride, wct, gain, n_missions, n,
@@ -2626,16 +2837,17 @@ int launch(int m, int dtype, F f) {
 template <typename T>
 long long workspace_bytes(int kind, int m, int n_cells, long long count) {
   if (count <= 0 || m < 1 || m > kMaxCtaM) return 0;
-  if (kind == 3) {  // edge_factor_gain: the register route unless its slices do not fit
+  if (kind == kEdgeKernel) {
+    // the register route unless its slices do not fit; the warp route's U^T
     if (m <= kMaxUnrolledM) {
       if (edge_register_bytes<T>(m, n_cells) <= kMaxSharedBytes) return 0;
     } else if (m <= kMaxWarpM) {
-      return 0;
+      return edge_rows_bytes<T>(m, count);
     }
     return edge_plan<T>(m, n_cells, count).bytes;
   }
   if (m <= kMaxWarpM) return 0;
-  return cta_plan<T>(m, count, kind == 2 ? kTraceSlots : 1).global_bytes;
+  return cta_plan<T>(m, count, kind == kTraceKernel ? kTraceSlots : 1).global_bytes;
 }
 
 }  // namespace

@@ -8,7 +8,8 @@ with no fallback: a CUDA tensor the kernel cannot take raises.  Each
 launch runs under its inputs' device, on that device's current stream.
 Where the kernels' route for M >= 33 needs global memory (a workspace past
 a CTA's shared memory, and ``edge_factor_gain``'s factor and squares
-between its three device kernels), the wrapper allocates it with
+between its three device kernels, and its factor between its two at M =
+13..32), the wrapper allocates it with
 ``torch.empty`` on the inputs' device (the caching allocator's, on that
 stream).  Each
 carries a plain integer ``launches`` that it increments where it launches
@@ -51,17 +52,21 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC",
 )
 #: the source is compiled as this many parts at once (-DSMALLCHOL_PART=0 ..
-#: PARTS - 1: part 0 every kernel but the warp route's unrolled ones and the
-#: C interface, the others those for their ranges of M), then linked: ptxas
-#: compiles one part's kernels one after another
-PARTS = 7
+#: PARTS - 1: part 0 every kernel not unrolled for each M and the C
+#: interface, parts 1-6 K1's and K2's unrolled kernels for their ranges of
+#: M = 13..32, parts 7-12 K3's and the edge update's, parts 13-14 the
+#: register route's for M = 1..12), then linked: the compiler works through
+#: one part's kernels one after another
+PARTS = 15
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 
 _lib: Optional[ctypes.CDLL] = None
 #: the library's kernel kinds, for ``smallchol_workspace_bytes``
 _INVERSE, _INVERSE_FACTOR, _TRACE, _EDGE = range(4)
-#: seconds the last build took (0.0 when a built library was reused)
+#: seconds the last build took (0.0 when a built library was reused), and
+#: when each part's compile ended, from the build's start
 build_seconds = 0.0
+part_seconds: list = []
 
 
 def _nvcc() -> str:
@@ -85,10 +90,10 @@ def build() -> pathlib.Path:
     """Compile the kernel library unless this source's build exists: the
     PARTS parts at once, then one link.  The compiler's report (registers,
     spills) lands next to it as ``.log``."""
-    global build_seconds
+    global build_seconds, part_seconds
     path = library_path()
     if path.exists():
-        build_seconds = 0.0
+        build_seconds, part_seconds = 0.0, []
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     stem = path.with_name(f"{path.stem}.{os.getpid()}")
@@ -101,7 +106,14 @@ def build() -> pathlib.Path:
         cmd = [_nvcc(), *NVCC_FLAGS, "-c", f"-DSMALLCHOL_PART={part}", "-o", str(obj), str(SOURCE)]
         with open(log, "w") as out:  # a file, not a pipe: no part waits on a reader
             procs.append((cmd, subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT)))
-    codes = [(cmd, proc.wait()) for cmd, proc in procs]
+    ended = {}
+    while len(ended) < len(procs):
+        for part, (_, proc) in enumerate(procs):
+            if part not in ended and proc.poll() is not None:
+                ended[part] = time.perf_counter() - t0
+        time.sleep(0.05)
+    part_seconds = [ended[part] for part in range(len(procs))]
+    codes = [(cmd, proc.returncode) for cmd, proc in procs]
     failed = [(cmd, rc) for cmd, rc in codes if rc != 0]
     report = "".join(log.read_text() for log in logs)
     if not failed:
@@ -175,8 +187,10 @@ def _check_m(name: str, M: int) -> None:
 
 def _workspace(lib, kind: int, M: int, n_cells: int, count: int, code: int,
                device: torch.device) -> Optional[torch.Tensor]:
-    """The global-memory workspace of a launch of the M >= 33 route whose
-    workspace does not fit a CTA's shared memory, else None."""
+    """The global-memory workspace the library asks for this launch (the
+    M >= 33 route's past a CTA's shared memory, ``edge_factor_gain``'s
+    factor between its device kernels, and on the M >= 33 route its
+    squares), else None."""
     nbytes = lib.smallchol_workspace_bytes(kind, M, n_cells, count, code)
     return torch.empty(nbytes, dtype=torch.uint8, device=device) if nbytes > 0 else None
 
@@ -207,19 +221,22 @@ def cta_workspace_in_global_memory():
         lib.smallchol_set_cta_shared_limit(previous)
 
 
-#: the kernels that ``warp_route`` can force at M = 13..32
+#: the kinds of kernel that ``warp_route`` can force at M = 13..32
 WARP_ROUTES = {"runtime_m": 1, "unrolled": 2}
 
 
 @contextlib.contextmanager
 def warp_route(kind: str):
-    """Within the block, ``spd_inverse`` and ``spd_trace_product_packed``
-    take one kind of kernel at every M = 13..32: "runtime_m" (one warp per
-    matrix or block, M an argument, the factors in shared memory) or
-    "unrolled" (M a template parameter: a warp per matrix with its rows in
-    registers, a lane per block).  By default each M takes the kind that
-    ran faster there on the H100; the card tests hold both kinds against
-    the plain versions, and chip_smoke.py times one against the other."""
+    """Within the block, ``spd_inverse`` and ``spd_trace_product`` take one
+    kind of kernel at every M = 13..32: "runtime_m" (one warp per matrix or
+    block, M an argument, the factors in shared memory) or "unrolled" (M a
+    template parameter: a warp per matrix with its factors' rows in
+    registers for ``spd_inverse``, a lane per block for the trace product).
+    By default each M and dtype takes the kind that ran faster there on
+    the H100 (scripts/time_torch_warp_route.py); the card tests hold both
+    kinds against the plain versions, and chip_smoke.py times one against
+    the other.  ``spd_inverse_factor`` and ``edge_factor_gain`` have the
+    unrolled kind only, whatever is forced."""
     lib = _lib or _load()
     previous = lib.smallchol_set_warp_route(WARP_ROUTES[kind])
     try:
@@ -324,7 +341,8 @@ def edge_factor_gain(
     (B, M, M), A (B, M, N), the R table (num_actions, M), the actions a
     (B,) int64 and a mask (N,) or (B, N) or None
     (ops/smallchol.edge_factor_gain): one launch (at M >= 33 three device
-    kernels on one stream: factor, Uᵀ·A, gain)."""
+    kernels on one stream: factor, Uᵀ·A, gain; at M = 13..32 two: factor,
+    Uᵀ·A and the gain)."""
     inputs = [S_raw, A, R_table, a] + ([] if diag_mask is None else [diag_mask])
     if all(t.device.type == "cpu" for t in inputs):
         return smallchol.edge_factor_gain(S_raw, A, R_table, a, diag_mask, round_bf16)

@@ -25,7 +25,16 @@ factors in shared memory) and unrolled (a warp per matrix with its rows in
 registers; a lane per block): both kinds and the default are held at every
 M from 13 to 32 in both dtypes, the trace product over ragged runs of
 blocks, the inverse over ragged and misaligned batches and both on
-block-diagonal S (zero dividends), each into NaN-filled outputs.  With two cards, each wrapper runs
+block-diagonal S (zero dividends), each into NaN-filled outputs;
+``spd_inverse_factor`` and ``edge_factor_gain`` take two kinds there too
+(the runtime-M kernels; a warp per matrix or mission with its factors'
+rows in registers, the edge update's Uᵀ·A and gain then a CTA per mission
+from Uᵀ in a workspace): both kinds and the default at every M from 13
+to 32 in both dtypes (the edge update with the bf16 round trip too), at M =
+13, 25, 32 over ragged column tiles (N = 70, 129) and N = 400 with every
+mask (none, shared, per mission, per CMA-ES member), over batches of 1, 5
+and 1025 missions, and the launch refused (-2) without its workspace.
+With two cards, each wrapper runs
 on the second while the first is current (one card skips that test).
 
 These tests need an NVIDIA Hopper card and the CUDA toolkit; elsewhere
@@ -438,6 +447,127 @@ def test_warp_route_refuses_an_unknown_kind(cuda):
     with pytest.raises(KeyError):
         with kernels.warp_route("cta"):
             pass
+
+
+def factor_into_nan(S):
+    """spd_inverse_factor's launch on (n, M, M) S into NaN-filled outputs
+    handed to the library (no workspace below M = 33)."""
+    n, M = S.shape[0], S.shape[-1]
+    kernels.spd_inverse_factor(S[:1])  # builds and loads the library
+    inv, U = torch.full_like(S, float("nan")), torch.full_like(S, float("nan"))
+    err = kernels._lib.smallchol_spd_inverse_factor(
+        S.data_ptr(), inv.data_ptr(), U.data_ptr(), n, M, kernels._DTYPE_CODES[S.dtype], None,
+        torch.cuda.current_stream().cuda_stream,
+    )
+    torch.cuda.synchronize()
+    assert err == 0
+    return inv, U
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("M", WARP_M)
+def test_spd_inverse_factor_warp_route_every_m(cuda, M, dtype):
+    """spd_inverse_factor at every M of the warp route on 67 matrices (one
+    clamped: its factor overflows where the plain version's does) into
+    NaN-filled outputs."""
+    S = random_spd(67, M, dtype, seed=900 + M)
+    S[5, -1, -1] -= 2.0 * S[5].diagonal().sum()
+    S = S.to(cuda)
+    want_inv, want_U = smallchol.spd_inverse_factor(S)
+    inv, U = factor_into_nan(S)
+    assert same_finite(inv, want_inv) and same(U, want_U)
+    assert torch.equal(torch.triu(U, 1), torch.zeros_like(U))
+
+
+def edge_masks(mask, lam=3):
+    """The masks the edge update takes: none, one shared (N,), one per
+    mission (B, N), and CMA-ES's per member: each mission's row repeated
+    for its λ members, cut to B rows."""
+    B = mask.shape[0]
+    member = mask[:(B + lam - 1) // lam].repeat_interleave(lam, dim=0)[:B]
+    return {"none": None, "shared": mask[0].contiguous(), "per_mission": mask,
+            "per_member": member.contiguous()}
+
+
+@pytest.mark.parametrize("dtype,round_bf16", EDGE_DTYPES, ids=EDGE_IDS)
+@pytest.mark.parametrize("M", WARP_M)
+def test_edge_factor_gain_warp_route_every_m(cuda, M, dtype, round_bf16):
+    """edge_factor_gain at every M of the warp route, N = 400, B = 67 (no
+    multiple of 4; one mission clamped), a per-mission mask: bitwise, NaN
+    where the plain version has it."""
+    S_raw, A, R, a, mask = (t.to(cuda) for t in edge_inputs(67, M, 400, dtype, seed=M,
+                                                             clamp=True))
+    want = smallchol.edge_factor_gain(S_raw, A, R, a, mask, round_bf16)
+    poisoned(2 * A.numel() * A.element_size(), cuda)
+    got = kernels.edge_factor_gain(S_raw, A, R, a, mask, round_bf16)
+    torch.cuda.synchronize()
+    assert same_finite(got[0], want[0]) and same_finite(got[1], want[1])
+
+
+@pytest.mark.parametrize("mask", ["none", "shared", "per_mission", "per_member"])
+@pytest.mark.parametrize("N", [70, 129, 400])
+@pytest.mark.parametrize("dtype,round_bf16", EDGE_DTYPES, ids=EDGE_IDS)
+@pytest.mark.parametrize("M", [13, 25, 32])
+def test_edge_factor_gain_warp_route_columns_and_masks(cuda, M, dtype, round_bf16, N, mask):
+    """M = 13, 25, 32 over ragged passes of columns (N = 70, 129: the last
+    pass part empty, N not a multiple of 4) and N = 400, every mask, B =
+    37, into NaN-filled memory."""
+    S_raw, A, R, a, per = (t.to(cuda) for t in edge_inputs(37, M, N, dtype, seed=M + N))
+    m = edge_masks(per)[mask]
+    want = smallchol.edge_factor_gain(S_raw, A, R, a, m, round_bf16)
+    poisoned(2 * A.numel() * A.element_size(), cuda)
+    got = kernels.edge_factor_gain(S_raw, A, R, a, m, round_bf16)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got[0]).all()) and bool(torch.isfinite(got[1]).all())
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("B", [1, 5, 1025])
+def test_edge_factor_gain_warp_route_batches(cuda, B):
+    """The route's one warp and one CTA per mission at B = 1, 5 and 1025,
+    M = 25, N = 400, each output and the workspace first filled with NaN
+    and handed to the library."""
+    S_raw, A, R, a, mask = (t.to(cuda) for t in edge_inputs(B, 25, 400, torch.float32, seed=B))
+    kernels.edge_factor_gain(S_raw[:1], A[:1], R, a[:1])  # builds and loads the library
+    want = smallchol.edge_factor_gain(S_raw, A, R, a, mask)
+    ws = kernels._workspace(kernels._lib, kernels._EDGE, 25, 400, B, 0, cuda)
+    assert ws is not None and ws.numel() >= B * 25 * 32 * 4
+    ws.fill_(255)  # NaN bytes
+    WcT = torch.full_like(A, float("nan"))
+    gain = torch.full((B,), float("nan"), device=cuda)
+    err = kernels._lib.smallchol_edge_factor_gain(
+        S_raw.data_ptr(), A.data_ptr(), R.data_ptr(), a.data_ptr(), mask.data_ptr(), 400,
+        WcT.data_ptr(), gain.data_ptr(), B, 25, 400, 0, 0, ws.data_ptr(),
+        torch.cuda.current_stream().cuda_stream,
+    )
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.equal(WcT, want[0]) and torch.equal(gain, want[1])
+
+
+def test_edge_factor_gain_warp_route_workspace(cuda):
+    """The route asks for Uᵀ's bytes (rows of 32) whatever kind K1 and K2
+    are forced to, K3 for none; without its workspace the edge launch
+    returns -2 (nothing launched) and the wrapper's check raises."""
+    B, M, N = 8, 25, 400
+    S_raw, A, R, a, mask = (t.to(cuda) for t in edge_inputs(B, M, N, torch.float32, seed=7))
+    kernels.edge_factor_gain(S_raw, A, R, a, mask)  # builds and loads the library
+    lib = kernels._lib
+    for code, elem in ((0, 4), (1, 8)):
+        for kind in WARP_KINDS:
+            with warp_kind(kind):
+                nbytes = lib.smallchol_workspace_bytes(kernels._EDGE, M, N, B, code)
+                assert nbytes == -(-B * M * 32 * elem // 256) * 256, kind
+                assert lib.smallchol_workspace_bytes(kernels._INVERSE_FACTOR, M, 0, B, code) == 0
+    WcT, gain = torch.empty_like(A), torch.empty((B,), device=cuda)
+    err = lib.smallchol_edge_factor_gain(
+        S_raw.data_ptr(), A.data_ptr(), R.data_ptr(), a.data_ptr(), mask.data_ptr(), N,
+        WcT.data_ptr(), gain.data_ptr(), B, M, N, 0, 0, None,
+        torch.cuda.current_stream().cuda_stream,
+    )
+    assert err == -2
+    with pytest.raises(RuntimeError, match="workspace missing"):
+        kernels._raise_on("edge_factor_gain", err)
 
 
 def test_edge_factor_gain_is_the_edge_update(cuda):

@@ -11,18 +11,24 @@ at a time, and adds the terms in packed order.
 ``spd_inverse`` runs with one warp per matrix (``spd_inverse_rows_kernel``):
 lane i keeps row i of L in registers, lane c column c of L⁻¹, and reads
 another lane's row or column from a shared copy by 16-byte broadcast
-loads (the pivot by shuffle).  No CUDA
+loads (the pivot by shuffle); ``factor_rows_kernel`` follows it with a
+second such Cholesky on S⁻¹, for ``spd_inverse_factor`` and for
+``edge_factor_gain``'s factor, which forms S = 0.5 (S_raw + S_rawᵀ) +
+diag(R[a]) as its first Cholesky reads the staged S_raw and stores Uᵀ to
+rows of 32; ``edge_columns_kernel`` then multiplies it with A, a thread
+per column, and sums the gain in the warp order.  No CUDA
 runs on this CPU, so both are transliterated here with the device code's
 loops, guards, shared-memory addresses and shuffle sources, a warp's 32
 lanes at once (every lane runs the same instructions).  The emulated
 shared memory records what each entry holds and checks that every read
 finds what the kernel means to read there: nothing is read after it is
 overwritten.  The results must equal ``ops/smallchol``'s
-``spd_trace_product_packed`` and ``spd_inverse`` to the last bit (NaN
-where they have NaN), at M = 13, 25 and 32 in float32 and float64, on
-random SPD matrices, on matrices whose last pivot is clamped, and on
-block-diagonal ones whose L and L⁻¹ are mostly zeros (the divisions' zero
-shortcut)."""
+``spd_trace_product_packed``, ``spd_inverse``, ``spd_inverse_factor`` and
+``edge_factor_gain`` to the last bit (NaN where they have NaN), at M = 13,
+25 and 32 in float32 and float64, on random SPD matrices, on matrices whose
+last pivot is clamped, on block-diagonal ones whose L and L⁻¹ are mostly
+zeros (the divisions' zero shortcut), and for the edge update on S with
+unit rows (a clipped footprint's padded rows, H = 0 and R = 1)."""
 
 import numpy as np
 import pytest
@@ -296,21 +302,15 @@ class RowsShared:
         return out
 
 
-def rows_inverse(S):
-    """csrc/smallchol.cu: spd_inverse_rows_kernel (the Cholesky by columns,
-    the column substitution, the S⁻¹ columns), every matrix at once: v[lane]
-    is what lane `lane` holds for each matrix."""
-    n, M, _ = S.shape
-    lane = torch.arange(WARP).view(WARP, 1)
-    row = torch.clamp(lane, max=M - 1)  # lanes past M repeat row M - 1
-    Sl = S.permute(1, 2, 0)  # (i, j, matrix)
-    lsh = RowsShared(M)
-
+def rows_cholesky(s, lsh, M, row, holds):
+    """csrc/smallchol.cu: rows_cholesky<M>, column by column; s(j) is each
+    lane's entry (row, j), a (WARP, n) tensor.  Writes the copy's slots
+    tagged ``holds``; returns each lane's row of the factor."""
     Lrow = [None] * M
     for j in range(M):
-        acc = Sl[row.squeeze(1), j]  # buf[row * M + j]
+        acc = s(j)
         for k4 in range(0, j, 4):
-            v = lsh.load4(j, k4, [u for u in range(4) if k4 + u < j], "L")
+            v = lsh.load4(j, k4, [u for u in range(4) if k4 + u < j], holds)
             for u in range(4):
                 if k4 + u < j:
                     acc = acc - Lrow[k4 + u] * v[u]
@@ -318,11 +318,15 @@ def rows_inverse(S):
         inv_d = 1.0 / d
         Lrow[j] = torch.where(row == j, d, torch.where(row > j, acc * inv_d, torch.zeros_like(d)))
         for ln in range(M):  # if (lane < M) lsh[row][j] = Lrow[j]
-            lsh.write(ln, j, Lrow[j][ln], "L")
+            lsh.write(ln, j, Lrow[j][ln], holds)
+    return Lrow
 
+
+def rows_invert_lower(lsh, M, row):
+    """csrc/smallchol.cu: rows_invert_lower<M>, lane c down column c of L⁻¹."""
     Lic = [None] * M
     for i in range(M):
-        acc = neg_zero(Lrow[0])
+        acc = neg_zero(lsh.val[0, 0].expand(WARP, -1))
         lii = None
         for k4 in range(0, i + 1, 4):
             v = lsh.load4(i, k4, [u for u in range(4) if k4 + u <= i], "L")
@@ -333,8 +337,14 @@ def rows_inverse(S):
                 if k == i:
                     lii = v[u]
         Lic[i] = torch.where(row == i, 1.0 / lii, neg_quotient(acc, lii))
+    return Lic
 
-    for ln in range(M):  # the columns of L^-1 over the copy of L
+
+def rows_inverse_entries(lsh, M, Lic):
+    """csrc/smallchol.cu: rows_inverse_entries<M>: the columns of L⁻¹ over
+    the copy of L, then lane j's column of S⁻¹; returns buf[r][c], every
+    entry written (both triangles)."""
+    for ln in range(M):
         for k in range(M):
             if k >= ln:
                 lsh.write(ln, k, Lic[k][ln], "Li")
@@ -351,7 +361,114 @@ def rows_inverse(S):
                 assert buf[r][c] is None or torch.equal(buf[r][c], acc[ln])
                 buf[r][c] = acc[ln]
     assert all(v is not None for r in buf for v in r), "an entry of S^-1 was never written"
-    return torch.stack([torch.stack(r, dim=-1) for r in buf], dim=-2)
+    return buf
+
+
+def lanes_rows(buf, row, j):
+    """Each lane's buf[row][j]: (WARP, n)."""
+    return torch.stack([buf[r][j] for r in row.squeeze(1).tolist()])
+
+
+def rows_factors(s, M, n, second):
+    """The row kernels' common passes on n matrices at once (v[lane] is
+    what lane `lane` holds for each matrix): the Cholesky of the matrix
+    whose lanes' entries s(j) gives, L⁻¹, S⁻¹; with ``second`` the
+    Cholesky of S⁻¹ as well.  Returns (S⁻¹, U or None)."""
+    lane = torch.arange(WARP).view(WARP, 1)
+    row = torch.clamp(lane, max=M - 1)  # lanes past M repeat row M - 1
+    lsh = RowsShared(M)
+    rows_cholesky(s(row), lsh, M, row, "L")
+    buf = rows_inverse_entries(lsh, M, rows_invert_lower(lsh, M, row))
+    inv = torch.stack([torch.stack(r, dim=-1) for r in buf], dim=-2)
+    if not second:
+        return inv, None
+    rows_cholesky(lambda j: lanes_rows(buf, row, j), lsh, M, row, "U")
+    U = torch.stack([torch.stack([lsh.val[r, c] for c in range(M)], dim=-1) for r in range(M)],
+                    dim=-2)
+    assert all(lsh.tag[r, c] == "U" for r in range(M) for c in range(M))
+    return inv, U
+
+
+def rows_inverse(S):
+    """csrc/smallchol.cu: spd_inverse_rows_kernel (the Cholesky by columns,
+    the column substitution, the S⁻¹ columns), every matrix at once."""
+    n, M, _ = S.shape
+    Sl = S.permute(1, 2, 0)  # (i, j, matrix)
+    return rows_factors(lambda row: lambda j: Sl[row.squeeze(1), j], M, n, second=False)[0]
+
+
+def rows_inverse_factor(S):
+    """csrc/smallchol.cu: factor_rows_kernel for spd_inverse_factor: S⁻¹ as
+    spd_inverse_rows_kernel, then U = chol(S⁻¹) from the staged buffer's
+    S⁻¹ into the copy, stored with zeros above the diagonal."""
+    n, M, _ = S.shape
+    Sl = S.permute(1, 2, 0)
+    return rows_factors(lambda row: lambda j: Sl[row.squeeze(1), j], M, n, second=True)
+
+
+def edge_factor_rows(S_raw, R_table, a):
+    """csrc/smallchol.cu: factor_rows_kernel for the edge: U = chol(S⁻¹) of S =
+    0.5 (S_raw + S_rawᵀ) + diag(R[a]), each lane's entry (row, j) formed
+    from the staged S_raw as the first Cholesky reads it; Uᵀ stored to rows
+    of 32 elements (ut[m][k] = U[k][m]), zeros below the diagonal and in the
+    padding."""
+    n, M, _ = S_raw.shape
+    Sl = S_raw.permute(1, 2, 0)
+    Rl = R_table[a].T  # (i, mission)
+
+    def entries(row):
+        r = row.squeeze(1)
+        r_row = Rl[r]
+        return lambda j: 0.5 * (Sl[r, j] + Sl[j, r]) + torch.where(
+            r[:, None] == j, r_row, torch.zeros_like(r_row))
+
+    _, U = rows_factors(entries, M, n, second=True)
+    ut = torch.zeros((n, M, 32), dtype=S_raw.dtype)
+    ut[:, :, :M] = U.mT  # ub[m * 32 + lane] = lane < M ? U[lane][m] : 0
+    return ut
+
+
+COLUMNS_THREADS = 256  # csrc/smallchol.cu: kColumnsThreads
+
+
+def edge_columns(ut, A, mask=None, round_bf16=False, threads=COLUMNS_THREADS):
+    """csrc/smallchol.cu: edge_columns_kernel, every mission and column at
+    once (a thread's column is one lane of these tensors): Uᵀ's rows staged
+    (rows of rows_ld(M), read by 16-byte loads), each column's Wcᵀ row by
+    row (the sum over k from -0, U's zeros kept), its squares in row order,
+    the mask; the sums of each pass of ``threads`` columns read by warp 0 in
+    the warp order, then the xor tree.  Returns (Wcᵀ, gain)."""
+    B, M, n = A.shape
+    ld = (M + 3) // 4 * 4
+    us = ut[:, :, :ld]  # us[m * ld + k] = ub[m * 32 + k], kLd <= 32
+    WcT = torch.full_like(A, float("nan"))
+    sq = None
+    for m in range(M):
+        acc = torch.full((B, n), -0.0, dtype=A.dtype)
+        for k4 in range(0, M, 4):
+            for u in range(4):
+                if k4 + u < M:
+                    acc = acc + us[:, m, k4 + u, None] * A[:, k4 + u]
+        if round_bf16:
+            acc = acc.to(torch.bfloat16).to(A.dtype)
+        WcT[:, m] = acc
+        sq = acc * acc if m == 0 else sq + acc * acc
+    if mask is not None:
+        sq = sq * mask
+    g = None  # warp 0: (B, 32) lane sums
+    for c0 in range(0, n, threads):
+        sqs = torch.zeros((B, threads), dtype=A.dtype)  # zero past n
+        sqs[:, :min(threads, n - c0)] = sq[:, c0:c0 + threads]
+        for w in range(threads // WARP):
+            chunk = c0 // WARP + w
+            if WARP * chunk < n:
+                v = sqs[:, w * WARP:(w + 1) * WARP]
+                g = v if chunk == 0 else g + v
+    width = WARP // 2
+    while width:  # the xor tree: lane l adds lane l ^ width, a + b = b + a
+        g = g + g[:, torch.arange(WARP) ^ width]
+        width //= 2
+    return WcT, g[:, 0]
 
 
 def same(got, want):
@@ -403,3 +520,59 @@ def test_rows_inverse_order_is_the_plain_order(M, dtype, case):
     if case == "sparse":  # zero dividends: the shortcut's zeros keep their sign
         assert bool((got == 0).any())
         assert torch.equal(torch.signbit(got), torch.signbit(want))
+
+
+@pytest.mark.parametrize("case", ["spd", "clamped", "sparse"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("M", WARP_M)
+def test_rows_inverse_factor_order_is_the_plain_order(M, dtype, case):
+    """factor_rows_kernel for K3: S⁻¹ and U, bitwise the plain
+    spd_inverse_factor's (NaN where it overflows on a clamped pivot)."""
+    S = spd_batch(4, M, dtype, seed=50 + M, clamp=case == "clamped", sparse=case == "sparse")
+    inv, U = rows_inverse_factor(S)
+    want_inv, want_U = smallchol.spd_inverse_factor(S)
+    assert same(inv, want_inv) and same(U, want_U)
+    assert torch.equal(torch.signbit(inv), torch.signbit(want_inv))
+    assert torch.equal(torch.triu(U, 1), torch.zeros_like(U))
+
+
+def edge_batch(B, M, N, dtype, seed, padded):
+    """S_raw = A·Hᵀ and A = H·P as a descent step or the fitness forms them,
+    an R table of 5 actions, actions and a 0/1 mask; with ``padded`` the
+    last rows of each mission's H are zeros and their R ones, as the
+    continuous world pads a clipped footprint (S gets unit rows)."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(N, N))
+    P = X @ X.T / N + 0.1 * np.eye(N)
+    H = rng.normal(size=(B, M, N)) / N ** 0.5
+    R = rng.uniform(0.5, 1.5, size=(5, M))
+    if padded:
+        H[:, M - M // 3:] = 0.0
+        R[:, M - M // 3:] = 1.0
+    a = rng.integers(0, 5, size=B)
+    A = H @ P
+    mask = (rng.random((B, N)) > 0.4).astype(np.float64)
+    t = lambda x: torch.from_numpy(x).to(dtype)  # noqa: E731
+    return t(A @ np.swapaxes(H, -1, -2)), t(A), t(R), torch.from_numpy(a), t(mask)
+
+
+@pytest.mark.parametrize("case", ["dense", "padded"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("M", WARP_M)
+def test_edge_rows_and_columns_are_the_plain_order(M, dtype, case):
+    """edge_factor_gain's warp route: Uᵀ from factor_rows_kernel into rows
+    of 32, then edge_columns_kernel, over
+    N = 70 columns in passes of 32 (three passes, the last ragged: the
+    kernel's 256 columns a pass, scaled down) and of 256, with a per-mission
+    mask, with a shared one and the bf16 round trip: Wcᵀ and the gain
+    bitwise the plain edge_factor_gain's."""
+    S_raw, A, R, a, mask = edge_batch(3, M, 70, dtype, seed=M, padded=case == "padded")
+    ut = edge_factor_rows(S_raw, R, a)
+    assert torch.equal(ut[:, :, M:], torch.zeros_like(ut[:, :, M:]))
+    for m, rb, threads in ((mask, False, 32), (mask, False, COLUMNS_THREADS),
+                           (mask[0], dtype == torch.float32, 64)):
+        WcT, gain = edge_columns(ut, A, m, rb, threads)
+        want_wct, want_gain = smallchol.edge_factor_gain(S_raw, A, R, a, m, rb)
+        assert same(WcT, want_wct) and same(gain, want_gain)
+    if case == "padded":  # unit rows: zeros in U, and zero dividends on the way
+        assert bool((ut[:, :, :M] == 0).sum() > M * (M - 1) // 2 * 3)
