@@ -319,6 +319,7 @@ from ipp_rl_tpu_torch.serialization import read_checkpoint
 from ipp_rl_tpu_torch.tools import eval_snapshots
 from ipp_rl_tpu_torch.tools import quality_vs_runtime as qvr
 from ipp_rl_tpu_torch.trajgen import planner as trajgen
+from ipp_rl_tpu_torch.utils import tracing
 
 ROOT = pathlib.Path(__file__).resolve().parent
 # published H100 SXM peaks (NVIDIA data sheet), at the full 700 W limit
@@ -875,7 +876,6 @@ def record_trace_products(fn, *args) -> list:
         recorded.append((S_packed, G_packed))
         return launch(S_packed, G_packed)
 
-    record.launches = 0  # the wrapper counts its launch on the name it is bound to
     kernels.spd_trace_product_packed = record
     try:
         fn(*args)
@@ -1577,71 +1577,36 @@ class RootVisits:
 
 
 @contextlib.contextmanager
-def count_calls(owner, attr: str):
-    """Counts the calls of ``owner.attr`` in a one-element list while the
-    block runs: an instance's method, or a class's (then every instance's,
-    those made inside the block too)."""
-    own = vars(owner).get(attr)
-    fn, calls = getattr(owner, attr), [0]
-
-    def counted(*args, **kw):
-        calls[0] += 1
-        return fn(*args, **kw)
-
-    setattr(owner, attr, counted)
+def traced():
+    """The program's tracer on, from empty, while the block runs; the list
+    it yields receives the tracer's snapshot (its spans, each with its
+    device ms between CUDA events, and its counters) when the block ends."""
+    tracing.reset()
+    tracing.enable()
+    out = []
     try:
-        yield calls
+        yield out
     finally:
-        if own is None:
-            delattr(owner, attr)
-        else:
-            setattr(owner, attr, own)
+        tracing.disable()
+    out.append(tracing.snapshot())
 
 
-class PhaseTimer:
-    """Device time of named phases of one replan: CUDA events recorded
-    around each call of the wrapped methods, summed after a synchronise.
-    A call made inside a ``wrap_scope`` part is filed as ``<part>/<phase>``."""
+def span_ms(snap, name: str, inside: str | None = None) -> list:
+    """Device ms of each span ``name`` of a snapshot, in the order they
+    opened; with ``inside``, of those opened inside a span of that name."""
+    by_id = {s.id: s for s in snap.spans}
 
-    def __init__(self):
-        self.events = {}
-        self.scope = None
+    def under(s):
+        p = by_id.get(s.parent)
+        while p is not None and p.name != inside:
+            p = by_id.get(p.parent)
+        return p is not None
 
-    def wrap_scope(self, obj, attr: str, scope: str) -> None:
-        fn = getattr(obj, attr)
+    return [s.device_ms for s in snap.spans if s.name == name and (inside is None or under(s))]
 
-        def scoped(*args, **kw):
-            self.scope = scope
-            try:
-                return fn(*args, **kw)
-            finally:
-                self.scope = None
 
-        setattr(obj, attr, scoped)
-        self.wrap(obj, attr, scope)
-
-    def wrap(self, obj, attr: str, phase: str) -> None:
-        fn = getattr(obj, attr)
-
-        def timed(*args, **kw):
-            name = phase if self.scope in (None, phase) else f"{self.scope}/{phase}"
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(*args, **kw)
-            end.record()
-            self.events.setdefault(name, []).append((start, end))
-            return out
-
-        if hasattr(fn, "infer_dtype"):
-            timed.infer_dtype = fn.infer_dtype
-        setattr(obj, attr, timed)
-
-    def calls_ms(self, phase: str) -> list:
-        torch.cuda.synchronize()
-        return [s.elapsed_time(e) for s, e in self.events[phase]]
-
-    def ms(self) -> dict:
-        return {k: sum(self.calls_ms(k)) for k in self.events}
+def span_count(snap, name: str) -> int:
+    return sum(s.name == name for s in snap.spans)
 
 
 def network_flops(net, planes: torch.Tensor, mask: torch.Tensor) -> int:
@@ -1695,18 +1660,19 @@ def zero_phase(cfg) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    with count_calls(planner.mcts, "_descend_step") as steps:
-        kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        res = planner.run(ZERO_B, max_steps=ZERO_STEPS, generator=gen)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    before = tracing.counts("zero.")
+    t0 = time.perf_counter()
+    res = planner.run(ZERO_B, max_steps=ZERO_STEPS, generator=gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    steps = tracing.counts("zero.")["zero.descent_steps"] - before.get("zero.descent_steps", 0)
     peak = torch.cuda.max_memory_allocated() / 1e9
-    log(f"  launches in the run: {launches}; descent steps {steps[0]}")
+    log(f"  launches in the run: {launches}; descent steps {steps}")
     for name in ("spd_inverse", "edge_factor_gain"):
         check(launches[name] > 0, f"{name} was not launched on the zero path")
-    check(launches["edge_factor_gain"] == steps[0],
+    check(launches["edge_factor_gain"] == steps,
           "edge_factor_gain did not launch once per descent step")
     check(launches["spd_inverse_factor"] == 0, "spd_inverse_factor launched on the zero path")
 
@@ -1723,17 +1689,17 @@ def zero_phase(cfg) -> dict:
     log(f"  mean uncertainty per step: {np.array2string(mean_unc, precision=3)}")
     check(bool(np.all(np.diff(mean_unc) < 0)), "uncertainty does not fall step over step")
 
-    # one more steady replan, split into phases by CUDA events
+    # one more steady replan, split into phases by the program's spans
     state = res.final_state
     hist = init_history(cfg, hp, ZERO_B, world.dtype, world.device)
     hist = push_history(hist, state.cov, state.pos, state.budget / cfg.constraints.budget)
-    timer = zero_timer(planner)
-    planner._replan(state, hist, gen, None)
-    split = zero_split(timer)
+    with traced() as snap:
+        planner._replan(state, hist, gen, None)
+    split = zero_split(snap[0])
     n = cfg.environment.num_cells
     flops = network_flops(net, torch.zeros((ZERO_B, n, n, plane_channels(hp)), device=world.device),
                           torch.ones((ZERO_B, world.num_actions), device=world.device))
-    forwards = len(timer.events["forward"])
+    forwards = span_count(snap[0], "zero.forward")
     tflops = flops / (split["forward"] / forwards * 1e-3) / 1e12
     log(f"  network forward: {flops / 1e12:.3f} TFLOP per simulation at B={ZERO_B}, "
         f"{forwards} forwards, {split['forward'] / forwards:.2f} ms each, {tflops:.1f} TFLOP/s")
@@ -1750,7 +1716,7 @@ def zero_phase(cfg) -> dict:
         "mean_uncertainty": mean_unc.tolist(),
         "launches": launches,
         "launches_per_replan": {k: v / ZERO_STEPS for k, v in launches.items()},
-        "descent_steps": steps[0],
+        "descent_steps": steps,
         "replan_split_ms": split,
         "forward_flops": flops, "forward_ms": split["forward"] / forwards,
         "forward_tflops_per_s": tflops,
@@ -1761,23 +1727,14 @@ def zero_phase(cfg) -> dict:
     return out
 
 
-def zero_timer(planner) -> PhaseTimer:
-    """A PhaseTimer on the zero search's phases and the planner's replans."""
-    timer = PhaseTimer()
-    mcts = planner.mcts
-    timer.wrap(mcts, "_descend_step", "descent")
-    timer.wrap(mcts, "_leaf_outputs", "leaf_planes")
-    timer.wrap(mcts, "leaf_planes", "leaf_planes")
-    timer.wrap(mcts, "predict", "forward")
-    timer.wrap(mcts, "_integrate_eval", "integrate_backup")
-    timer.wrap(mcts, "_backup", "integrate_backup")
-    timer.wrap(planner, "_replan", "replan")
-    return timer
+#: chip_smoke's phases of a zero replan, by the program's spans
+ZERO_PHASES = {"descent": "zero.descent", "leaf_planes": "zero.leaf", "forward": "zero.forward",
+               "integrate_backup": "zero.backup", "replan": "zero.replan"}
 
 
-def zero_split(timer: PhaseTimer) -> dict:
-    """ms per phase of the replans the timer saw, by CUDA events."""
-    split = timer.ms()
+def zero_split(snap) -> dict:
+    """ms per phase of the replans a snapshot holds, by CUDA events."""
+    split = {k: sum(span_ms(snap, name)) for k, name in ZERO_PHASES.items()}
     split["other"] = split["replan"] - sum(v for k, v in split.items() if k != "replan")
     log("  replan by CUDA events: " + ", ".join(f"{k} {v:.1f} ms" for k, v in split.items()))
     return split
@@ -1941,37 +1898,31 @@ def training_phase(cfg) -> dict:
         meter.wrap(learner.selfplay, "run", "selfplay")
         meter.wrap(learner, "train_iteration", "train")
         torch.cuda.synchronize()
-        with count_calls(world, "step_index") as commits, \
-                count_calls(ZeroMCTS, "_descend_step") as descents:
-            # the self-play searches split by CUDA events, as phase 5 splits a replan
-            timer = PhaseTimer()
-            for attr, part in (("_descend_step", "descent"), ("_leaf_outputs", "leaf_planes"),
-                               ("leaf_planes", "leaf_planes"), ("predict", "forward"),
-                               ("_integrate_eval", "integrate_backup"),
-                               ("_backup", "integrate_backup")):
-                timer.wrap(learner.mcts, attr, part)
-            timer.wrap(learner.selfplay, "run", "selfplay")
-            timer.wrap(learner, "train_iteration", "train")
-            kernels.reset_launch_counts()
+        # the self-play searches split by the program's spans, as phase 5 splits a replan
+        with traced() as snap:
             t0 = time.perf_counter()
             learner.learn(num_iterations=TRAIN_ITERATIONS)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = kernels.launch_counts()
-        split = timer.ms()
+        snap = snap[0]
+        split = {k: sum(span_ms(snap, name)) for k, name in ZERO_PHASES.items() if k != "replan"}
+        split["selfplay"] = sum(span_ms(snap, "zero.selfplay"))
+        split["train"] = sum(span_ms(snap, "zero.train"))
         split["selfplay_other"] = split["selfplay"] - sum(
             split[k] for k in ("descent", "leaf_planes", "forward", "integrate_backup"))
-        selfplay_steps = commits[0]
+        selfplay_steps = len(span_ms(snap, "plan.commit", inside="zero.selfplay"))
+        descents = snap.counters.get("zero.descent_steps", 0)
         log(f"  learn by CUDA events, over {selfplay_steps} self-play steps: "
             + ", ".join(f"{k} {v:.0f} ms" for k, v in split.items()))
-        log(f"  learn: {wall:.1f} s; launches {launches}; descent steps {descents[0]}, "
+        log(f"  learn: {wall:.1f} s; launches {launches}; descent steps {descents}, "
             f"self-play steps {selfplay_steps}")
         check(selfplay_steps == TRAIN_ITERATIONS * TRAIN_EPISODE_STEPS,
               f"{selfplay_steps} self-play commits for {TRAIN_ITERATIONS} x "
               f"{TRAIN_EPISODE_STEPS} steps")
         for name in ("spd_inverse", "edge_factor_gain"):
             check(launches[name] > 0, f"{name} was not launched on the training path")
-        check(launches["edge_factor_gain"] == descents[0] + selfplay_steps,
+        check(launches["edge_factor_gain"] == descents + selfplay_steps,
               "edge_factor_gain did not launch once per descent step and self-play step")
         check(launches["spd_inverse_factor"] == 0, "spd_inverse_factor launched in training")
         check(launches["spd_inverse"] == selfplay_steps, "spd_inverse: not one per commit")
@@ -2027,18 +1978,19 @@ def training_phase(cfg) -> dict:
         learner.arena.max_game_steps = ARENA_STEPS
         prev = load_checkpoint(os.path.join(tmp, "ckpt", "shared_net.temp"), learner.state)
         meter.wrap(learner.arena, "play_games", "arena")
-        with count_calls(ZeroMCTS, "_descend_step") as arena_descents:
-            kernels.reset_launch_counts()
-            t0 = time.perf_counter()
-            accepted = learner.arena_gate(prev, ARENA_GAMES)
-            torch.cuda.synchronize()
-            arena_wall = time.perf_counter() - t0
-            arena_launches = kernels.launch_counts()
+        kernels.reset_launch_counts()
+        before = tracing.counts("zero.").get("zero.descent_steps", 0)
+        t0 = time.perf_counter()
+        accepted = learner.arena_gate(prev, ARENA_GAMES)
+        torch.cuda.synchronize()
+        arena_wall = time.perf_counter() - t0
+        arena_launches = kernels.launch_counts()
+        arena_descents = tracing.counts("zero.")["zero.descent_steps"] - before
         arena_steps = 2 * ARENA_STEPS
         log(f"  arena gate: {ARENA_GAMES} games x {ARENA_STEPS} steps per network, "
             f"accepted={accepted}, {arena_wall:.1f} s; launches {arena_launches}; descent steps "
-            f"{arena_descents[0]}")
-        check(arena_launches["edge_factor_gain"] == arena_descents[0] + arena_steps,
+            f"{arena_descents}")
+        check(arena_launches["edge_factor_gain"] == arena_descents + arena_steps,
               "edge_factor_gain did not launch once per arena descent step and game step")
         check(arena_launches["spd_inverse_factor"] == 0, "spd_inverse_factor launched in the arena")
 
@@ -2046,7 +1998,7 @@ def training_phase(cfg) -> dict:
     # set-up); the learner's selfplay_s also holds the trajectory's copy to
     # the host, add_iteration and the npz write: the learner loop's I/O
     sp_s = meter.seconds["selfplay"][-1]
-    sp_event_ms = timer.calls_ms("selfplay")[-1]
+    sp_event_ms = span_ms(snap, "zero.selfplay")[-1]
     out = {
         "envs": TRAIN_ENVS, "episode_steps": TRAIN_EPISODE_STEPS, "iterations": TRAIN_ITERATIONS,
         "simulations": sims, "batch": hp.batch_size, "epochs": hp.num_epochs,
@@ -2061,9 +2013,9 @@ def training_phase(cfg) -> dict:
         "peak_mem_gb": meter.gb,
         "launches": {k: launches[k] + arena_launches[k] for k in launches},
         "launches_learn": launches, "launches_arena": arena_launches,
-        "descent_steps": descents[0], "selfplay_steps": selfplay_steps, "moved": moved,
+        "descent_steps": descents, "selfplay_steps": selfplay_steps, "moved": moved,
         "learn_split_ms": split,
-        "arena_descent_steps": arena_descents[0], "arena_steps": arena_steps,
+        "arena_descent_steps": arena_descents, "arena_steps": arena_steps,
         **timing,
     }
     log(f"  self-play (SelfPlay.run, iteration 1): {out['selfplay_ms_per_step']:.1f} ms per step "
@@ -2321,27 +2273,16 @@ def cmaes_phase(tcfg) -> dict:
 
 
 def cmaes_replan_split(planner, world, state, gen) -> tuple:
-    """One more replan and its commit, split by CUDA events: (ms per part,
-    ms of each fitness call)."""
-    timer = PhaseTimer()
-    parts = ((cmaes, "greedy_search_horizon", "greedy_init"), (cmaes, "cma_es_minimize", "cma"),
-             (planner, "trajectory_loss", "fitness"), (planner, "eigh", "eigh"),
-             (planner, "replan_batch", "replan"), (world, "step_position", "commit"))
-    saved = [(obj, attr, vars(obj).get(attr)) for obj, attr, _ in parts]
-    for obj, attr, part in parts:
-        timer.wrap(obj, attr, part)
-    try:
+    """One more replan and its commit, split by the program's spans' CUDA
+    events: (ms per part, ms of each fitness call)."""
+    with traced() as snap:
         wps_next, valid = planner.replan_batch(state, generator=gen)
         world.step_position(state.replace(active=state.active & valid), wps_next[:, 0],
                             generator=gen)
-        fitness = timer.calls_ms("fitness")  # G inside CMA-ES, then the greedy plan's
-        split = timer.ms()
-    finally:
-        for obj, attr, own in saved:  # a module's or instance's own, else the class's
-            if own is None:
-                delattr(obj, attr)
-            else:
-                setattr(obj, attr, own)
+    fitness = span_ms(snap[0], "cmaes.fitness")  # G inside CMA-ES, then the greedy plan's
+    split = {part: sum(span_ms(snap[0], name)) for part, name in (
+        ("greedy_init", "cmaes.init"), ("cma", "cmaes.minimize"), ("fitness", "cmaes.fitness"),
+        ("eigh", "cmaes.eigh"), ("replan", "cmaes.replan"), ("commit", "plan.commit"))}
     split["cma_update"] = split["cma"] - sum(fitness[:-1])
     split["other"] = split["replan"] - split["greedy_init"] - split["cma"] - fitness[-1]
     log("  one replan by CUDA events: " + ", ".join(f"{k} {v:.1f} ms" for k, v in split.items())
@@ -2419,40 +2360,34 @@ def classic_split(planner):
     their rank-M updates, and the rest (UCT, widening and tree writes; the
     rollout policy's choices); the backup with the root statistics; the
     commit.  The dict it yields is filled when the block ends."""
-    world = planner.world
-    timer = PhaseTimer()
-    timer.wrap_scope(planner, "_descend", "descent")
-    timer.wrap_scope(planner, "_rollout", "rollout")
-    parts = (("_sweep_rewards", "sweeps"), ("_edge", "edges"), ("_downdate", "edges"),
-             ("_backup", "backup"), ("root_stats", "backup"), ("search", "replan"))
-    for attr, part in parts:
-        timer.wrap(planner, attr, part)
-    own = vars(world).get("step_index")
-    timer.wrap(world, "step_index", "commit")
     split = {}
-    try:
+    with traced() as snap:
         yield split
-        ms = timer.ms()
-    finally:
-        for attr in ("_descend", "_rollout") + tuple(attr for attr, _ in parts):
-            delattr(planner, attr)
-        if own is None:
-            delattr(world, "step_index")
-        else:
-            setattr(world, "step_index", own)
-    n = len(timer.events["replan"])
-    sweeps = len(timer.events["descent/sweeps"]) + len(timer.events["rollout/sweeps"])
+    snap = snap[0]
+
+    def ms(name, inside=None):
+        return sum(span_ms(snap, name, inside))
+
+    n = span_count(snap, "classic.search")
+    sweeps = sum(len(span_ms(snap, "classic.sweep", inside))
+                 for inside in ("classic.descent", "classic.rollout"))
+    in_descent = ms("classic.sweep", "classic.descent") + ms("classic.edge", "classic.descent")
+    in_rollout = ms("classic.sweep", "classic.rollout") + ms("classic.edge", "classic.rollout")
     split.update({
         "replans": n,
-        "sweeps": (ms["descent/sweeps"] + ms["rollout/sweeps"]) / n,
-        "edges_rank_m": (ms["descent/edges"] + ms["rollout/edges"]) / n,
-        "descent_uct_tree": (ms["descent"] - ms["descent/sweeps"] - ms["descent/edges"]) / n,
-        "rollout_policy": (ms["rollout"] - ms["rollout/sweeps"] - ms["rollout/edges"]) / n,
-        "backup_root_stats": ms["backup"] / n,
-        "other": (ms["replan"] - ms["descent"] - ms["rollout"] - ms["backup"]) / n,
-        "replan": ms["replan"] / n,
-        "commit": ms["commit"] / len(timer.events["commit"]),
-        "sweep_ms_each": (ms["descent/sweeps"] + ms["rollout/sweeps"]) / sweeps,
+        "sweeps": (ms("classic.sweep", "classic.descent")
+                   + ms("classic.sweep", "classic.rollout")) / n,
+        "edges_rank_m": (ms("classic.edge", "classic.descent")
+                         + ms("classic.edge", "classic.rollout")) / n,
+        "descent_uct_tree": (ms("classic.descent") - in_descent) / n,
+        "rollout_policy": (ms("classic.rollout") - in_rollout) / n,
+        "backup_root_stats": ms("classic.backup") / n,
+        "other": (ms("classic.search") - ms("classic.descent") - ms("classic.rollout")
+                  - ms("classic.backup")) / n,
+        "replan": ms("classic.search") / n,
+        "commit": ms("plan.commit") / span_count(snap, "plan.commit"),
+        "sweep_ms_each": (ms("classic.sweep", "classic.descent")
+                          + ms("classic.sweep", "classic.rollout")) / sweeps,
     })
 
 
@@ -2716,16 +2651,14 @@ def drive(obj, fn):
     meter.wrap(obj.world, "step_position", "measure_commit")
     meter.wrap(obj.planner, "run", "plan")
     meter.wrap(SimulatedUAV, "fly", "fly")
+    before = tracing.counts("zero.").get("zero.descent_steps", 0)
     try:
-        with contextlib.ExitStack() as stack:
-            steps = (stack.enter_context(count_calls(obj.planner.mcts, "_descend_step"))
-                     if hasattr(obj.planner, "mcts") else [0])
-            t = time.perf_counter()
-            result = fn()
-            wall = time.perf_counter() - t
+        t = time.perf_counter()
+        result = fn()
+        wall = time.perf_counter() - t
     finally:
         SimulatedUAV.fly = fly
-    return result, wall, meter, steps[0]
+    return result, wall, meter, tracing.counts("zero.").get("zero.descent_steps", 0) - before
 
 
 def check_trajectory_ends(name: str, points, trajectories, tol: float) -> float:
@@ -2969,33 +2902,22 @@ def multidevice_phase() -> dict:
         # the mission's set-up (the GP prior of an N x N belief) is timed apart
         meter = PartMeter()
         meter.wrap(big, "init_state", "init")
-        timer = PhaseTimer()
-        saved = {name: getattr(dist, name) for name in
-                 ("all_reduce", "all_gather_into_tensor", "all_to_all_single")}
-        saved.update({name: getattr(large_grid, name) for name in
-                      ("sharded_sweep_gains", "sharded_kf_update")})
-        timer.wrap(large_grid, "sharded_sweep_gains", "sweep")
-        timer.wrap(large_grid, "sharded_kf_update", "commit")
-        for name in ("all_reduce", "all_gather_into_tensor", "all_to_all_single"):
-            timer.wrap(dist, name, "collectives")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        try:
-            kernels.reset_launch_counts()
+        with traced() as snap:
             t0 = time.perf_counter()
             run = large_grid.sharded_greedy_mission(mesh, big, GRID_STEPS, noise=bnoise,
                                                     ground_truth=bgt)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = kernels.launch_counts()
-        finally:
-            for name, fn in saved.items():
-                setattr(dist if name.startswith("all_") else large_grid, name, fn)
         peak = torch.cuda.max_memory_allocated() / 1e9
         steps = len(run["actions"])
         init_s = meter.seconds["init"][0]
         wall -= init_s
-        split = {k: v / steps for k, v in timer.ms().items()}
+        split = {part: sum(span_ms(snap[0], name)) / steps for part, name in (
+            ("sweep", "grid.sweep"), ("commit", "grid.commit"),
+            ("collectives", "grid.collective"))}
         check(steps == GRID_STEPS, f"{LARGE_GRID_DIM}x{LARGE_GRID_DIM}: {steps} steps taken")
         check(bool(np.isfinite(run["final_cov"]).all()), "large grid: non-finite covariance")
         check(run["uncertainty"][-1] < run["uncertainty"][0], "large grid: uncertainty rose")
@@ -3082,7 +3004,7 @@ def fine_grid_greedy(gen: torch.Generator, world=None, B: int = FINE_B,
         trace_events.append((start, end))
         return out
 
-    kernels.spd_trace_product_packed = timed_trace  # counts its launches while bound here
+    kernels.spd_trace_product_packed = timed_trace
     try:
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
@@ -3092,7 +3014,6 @@ def fine_grid_greedy(gen: torch.Generator, world=None, B: int = FINE_B,
         launches = kernels.launch_counts()
     finally:
         kernels.spd_trace_product_packed = launch
-        launch.launches = timed_trace.launches  # the wrapper's own counter takes the run's count
     trace_ms = sum(s_.elapsed_time(e_) for s_, e_ in trace_events) / steps
     t0 = time.perf_counter()
     with plain_versions():
@@ -3314,7 +3235,6 @@ def fine_1m_cmaes() -> dict:
         return launch(*args)
 
     kernels.reset_launch_counts()
-    capture.launches = 0  # the wrapper counts its launch on the name it is bound to
     kernels.edge_factor_gain = capture
     try:
         t0 = time.perf_counter()
@@ -3388,7 +3308,6 @@ def capture_edge_launches(keep):
         seen[0] += 1
         return launch(*args)
 
-    capture.launches = 0  # the wrapper counts its launch on the name it is bound to
     return capture, captured
 
 
@@ -3527,21 +3446,19 @@ def fine_2m_zero() -> dict:
                 net.state_dict()).run(B, max_steps=1, generator=gen)  # warm-up
     planner = ZeroPlanner(world, mc, predict, net.state_dict(), deploy_mode="reference")
     visits = RootVisits(planner)
-    timer = zero_timer(planner)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     capture, captured = capture_edge_launches(lambda i: i == 50)
-    with swap_edge_launch(capture) as launch, \
-            count_calls(planner.mcts, "_descend_step") as steps:
-        kernels.reset_launch_counts()
+    with swap_edge_launch(capture) as launch, traced() as snap:
         t0 = time.perf_counter()
         res = planner.run(B, max_steps=1, generator=gen)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = kernels.launch_counts()
+    steps = snap[0].counters["zero.descent_steps"]
     peak = torch.cuda.max_memory_allocated() / 1e9
-    log(f"  (b) launches in the replan: {launches}; descent steps {steps[0]}")
-    check(launches["edge_factor_gain"] == steps[0] > 0,
+    log(f"  (b) launches in the replan: {launches}; descent steps {steps}")
+    check(launches["edge_factor_gain"] == steps > 0,
           "2 m zero: edge_factor_gain did not launch once per descent step")
     check(launches["spd_inverse_factor"] == 0, "2 m zero: spd_inverse_factor launched")
     root_ns = torch.stack(visits.Ns)
@@ -3552,16 +3469,16 @@ def fine_2m_zero() -> dict:
         check(bool(np.isfinite(res.metrics[k]).all()), f"2 m zero: metric {k} not finite")
     check(len(captured) == 1 and tuple(captured[0][1].shape) == (B, 25, 400),
           "2 m zero: the descent step's edge inputs were not recorded")
-    split = zero_split(timer)
+    split = zero_split(snap[0])
     edge = edge_launch_check(captured[0], launch)
     out = {"batch": B, "replans": 1, "simulations": sims, "channels": hp.num_channels,
            "encoder_blocks": hp.num_encoder_res_blocks, "run_wall_s": wall,
            "ms_per_replan": wall * 1e3, "peak_mem_gb": peak, "launches": launches,
-           "descent_steps": steps[0],
+           "descent_steps": steps,
            "root_visits": [root_ns.min().item(), root_ns.max().item()],
            "replan_split_ms": split, "descent_step_edge": edge,
            "mean_uncertainty": res.metrics["uncertainty"].mean(axis=0).tolist()}
-    log(f"  (b) 2 m zero, B = {B}, one replan: {wall * 1e3:.1f} ms, {steps[0]} descent steps; "
+    log(f"  (b) 2 m zero, B = {B}, one replan: {wall * 1e3:.1f} ms, {steps} descent steps; "
         f"peak {peak:.2f} GB")
     return out
 

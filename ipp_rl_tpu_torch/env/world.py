@@ -35,6 +35,7 @@ from ipp_rl_tpu_torch.ops.sensor_model import (
     build_action_table,
     build_sweep_plan,
 )
+from ipp_rl_tpu_torch.utils.tracing import span
 
 
 @dataclasses.dataclass
@@ -273,26 +274,27 @@ class IPPWorld:
         """Take a measurement at lattice action ``action_idx`` (B,) and
         commit the belief update; a no-op for inactive missions."""
         act = state.active
-        # Inactive missions get zero measurement rows instead of a select
-        # over the full covariance afterwards: H = 0 makes Kᵀ = 0, so the
-        # Joseph commit returns P and the mean EXACTLY (P is kept
-        # symmetric every commit, so the re-symmetrization is bit-neutral).
-        H = self.H[action_idx] * act[:, None, None].to(self.dtype)  # (B, M, N)
-        R = self.R_diag[action_idx]
-        Zmat = self.Z[action_idx]
-        std = self.noise_std[action_idx]
-        z = self.synthesize_measurement(state.ground_truth, Zmat, std, noise, generator)
-        mean_next, cov_next = kf_update(state.cov, state.mean, H, R, z, jitter=jitter)
+        with span("plan.commit"):
+            # Inactive missions get zero measurement rows instead of a select
+            # over the full covariance afterwards: H = 0 makes Kᵀ = 0, so the
+            # Joseph commit returns P and the mean EXACTLY (P is kept
+            # symmetric every commit, so the re-symmetrization is bit-neutral).
+            H = self.H[action_idx] * act[:, None, None].to(self.dtype)  # (B, M, N)
+            R = self.R_diag[action_idx]
+            Zmat = self.Z[action_idx]
+            std = self.noise_std[action_idx]
+            z = self.synthesize_measurement(state.ground_truth, Zmat, std, noise, generator)
+            mean_next, cov_next = kf_update(state.cov, state.mean, H, R, z, jitter=jitter)
 
-        new_pos = self.actions_xyz[action_idx]
-        cost = travel_costs(new_pos, state.pos, self.cfg.uav.max_v, self.cfg.uav.max_a)
-        return state.replace(
-            mean=mean_next,
-            cov=cov_next,
-            pos=torch.where(act[:, None], new_pos, state.pos),
-            budget=torch.where(act, state.budget - cost, state.budget),
-            step=torch.where(act, state.step + 1, state.step),
-        )
+            new_pos = self.actions_xyz[action_idx]
+            cost = travel_costs(new_pos, state.pos, self.cfg.uav.max_v, self.cfg.uav.max_a)
+            return state.replace(
+                mean=mean_next,
+                cov=cov_next,
+                pos=torch.where(act[:, None], new_pos, state.pos),
+                budget=torch.where(act, state.budget - cost, state.budget),
+                step=torch.where(act, state.step + 1, state.step),
+            )
 
     def step_position(
         self,
@@ -308,20 +310,21 @@ class IPPWorld:
         The injected noise std is the noise VARIANCE, the reference's quirk
         (ops/sensor_model.py); ε (B, M) as in ``step_index``."""
         sensor = self.cfg.sensor
-        var = sensor.coeff_a * (1.0 - torch.exp(-sensor.coeff_b * waypoint[:, 2]))
-        std = var.to(self.dtype)
-        H, R, Zmat, _ = self.measurement_model_at(waypoint)
-        z = self.synthesize_measurement(state.ground_truth, Zmat, std, noise, generator)
-        mean_next, cov_next = kf_update(state.cov, state.mean, H, R, z, jitter=jitter)
-        cost = travel_costs(waypoint, state.pos, self.cfg.uav.max_v, self.cfg.uav.max_a)
-        act = state.active
-        return state.replace(
-            mean=torch.where(act[:, None], mean_next, state.mean),
-            cov=torch.where(act[:, None, None], cov_next, state.cov),
-            pos=torch.where(act[:, None], waypoint, state.pos),
-            budget=torch.where(act, state.budget - cost, state.budget),
-            step=torch.where(act, state.step + 1, state.step),
-        )
+        with span("plan.commit"):
+            var = sensor.coeff_a * (1.0 - torch.exp(-sensor.coeff_b * waypoint[:, 2]))
+            std = var.to(self.dtype)
+            H, R, Zmat, _ = self.measurement_model_at(waypoint)
+            z = self.synthesize_measurement(state.ground_truth, Zmat, std, noise, generator)
+            mean_next, cov_next = kf_update(state.cov, state.mean, H, R, z, jitter=jitter)
+            cost = travel_costs(waypoint, state.pos, self.cfg.uav.max_v, self.cfg.uav.max_a)
+            act = state.active
+            return state.replace(
+                mean=torch.where(act[:, None], mean_next, state.mean),
+                cov=torch.where(act[:, None, None], cov_next, state.cov),
+                pos=torch.where(act[:, None], waypoint, state.pos),
+                budget=torch.where(act, state.budget - cost, state.budget),
+                step=torch.where(act, state.step + 1, state.step),
+            )
 
     # ------------------------------------------------------------------ eval
 

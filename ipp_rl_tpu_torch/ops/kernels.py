@@ -12,9 +12,9 @@ between its three device kernels, and its factor between its two at M =
 13..32), the wrapper allocates it with
 ``torch.empty`` on the inputs' device (the caching allocator's, on that
 stream).  Each
-carries a plain integer ``launches`` that it increments where it launches
-its kernel and nowhere else, so a run can show that its path went through
-the kernels.
+counts its launches on the tracer's counter ``kernel.<name>``
+(utils/tracing.py), where it launches its kernel and nowhere else, so a run
+can show that its path went through the kernels (``launch_counts``).
 
 The library is built at first use from the repository's source with
 ``nvcc`` into ``_build/`` beside the package (a content-addressed file
@@ -37,6 +37,7 @@ from typing import Optional
 import torch
 
 from ipp_rl_tpu_torch.ops import smallchol
+from ipp_rl_tpu_torch.utils import tracing
 
 PACKAGE_DIR = pathlib.Path(__file__).resolve().parents[1]
 SOURCE = PACKAGE_DIR / "csrc" / "smallchol.cu"
@@ -265,11 +266,8 @@ def spd_inverse(S: torch.Tensor) -> torch.Tensor:
                 torch.cuda.current_stream(S.device).cuda_stream,
             )
         _raise_on("spd_inverse", err)
-        spd_inverse.launches += 1
+        tracing.count("kernel.spd_inverse")
     return out
-
-
-spd_inverse.launches = 0
 
 
 def spd_inverse_factor(S: torch.Tensor) -> tuple:
@@ -293,11 +291,8 @@ def spd_inverse_factor(S: torch.Tensor) -> tuple:
                 torch.cuda.current_stream(S.device).cuda_stream,
             )
         _raise_on("spd_inverse_factor", err)
-        spd_inverse_factor.launches += 1
+        tracing.count("kernel.spd_inverse_factor")
     return inv, chol
-
-
-spd_inverse_factor.launches = 0
 
 
 def spd_trace_product_packed(S: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
@@ -322,11 +317,8 @@ def spd_trace_product_packed(S: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
                 torch.cuda.current_stream(S.device).cuda_stream,
             )
         _raise_on("spd_trace_product", err)
-        spd_trace_product_packed.launches += 1
+        tracing.count("kernel.spd_trace_product")
     return out
-
-
-spd_trace_product_packed.launches = 0
 
 
 def edge_factor_gain(
@@ -384,25 +376,19 @@ def edge_factor_gain(
                 torch.cuda.current_stream(A.device).cuda_stream,
             )
         _raise_on(name, err)
-        edge_factor_gain.launches += 1
+        tracing.count("kernel.edge_factor_gain")
     return WcT, gain
 
 
-edge_factor_gain.launches = 0
+#: the wrappers by the names ``launch_counts`` gives them
+KERNELS = ("spd_inverse", "spd_inverse_factor", "spd_trace_product", "edge_factor_gain")
 
 
 def reset_launch_counts() -> None:
-    spd_inverse.launches = 0
-    spd_inverse_factor.launches = 0
-    spd_trace_product_packed.launches = 0
-    edge_factor_gain.launches = 0
+    tracing.reset(counters="kernel.")
 
 
 def launch_counts() -> dict:
     """Each kernel's launches since the last reset, by kernel name."""
-    return {
-        "spd_inverse": spd_inverse.launches,
-        "spd_inverse_factor": spd_inverse_factor.launches,
-        "spd_trace_product": spd_trace_product_packed.launches,
-        "edge_factor_gain": edge_factor_gain.launches,
-    }
+    launched = tracing.counts("kernel.")
+    return {name: launched.get(f"kernel.{name}", 0) for name in KERNELS}

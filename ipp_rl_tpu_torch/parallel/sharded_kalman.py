@@ -32,12 +32,14 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from ipp_rl_tpu_torch.ops import kernels
 from ipp_rl_tpu_torch.ops.kalman import kf_sweep_gains
+from ipp_rl_tpu_torch.utils.tracing import span
 
 
 def all_gather_rows(x: torch.Tensor, group, d: int) -> torch.Tensor:
     """The d ranks' x stacked along the leading axis, in rank order."""
     out = torch.empty((d * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
-    dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+    with span("grid.collective"):
+        dist.all_gather_into_tensor(out, x.contiguous(), group=group)
     return out
 
 
@@ -54,33 +56,36 @@ def sharded_kf_update(
     then 0.5·(P' + P'ᵀ) over the whole matrix, as the JAX package
     computes it; equal to ops/kalman.kf_update up to rounding.  ``z``
     None commits the covariance only."""
-    group = mesh.get_group("mp")
-    d, r = mesh["mp"].size(), mesh.get_local_rank("mp")
-    n_loc, N = cov.shape
-    if n_loc * d != N:
-        raise ValueError(f"{n_loc} rows on each of {d} ranks do not make N = {N}")
-    H_loc = H[:, r * n_loc:(r + 1) * n_loc]  # the columns of H that meet our rows
-    PHt_loc = cov @ H.mT  # (N/d, M) — our rows of P·Hᵀ
-    # S = H P Hᵀ = Σ_ranks H[:, rows] @ PHt[rows]
-    S = H_loc @ PHt_loc
-    dist.all_reduce(S, group=group)
-    S = S + torch.diag(R_diag)
-    S = 0.5 * (S + S.mT)
-    K_loc = PHt_loc @ kernels.spd_inverse(S.contiguous())  # our rows of the gain
-    PHt_full = all_gather_rows(PHt_loc, group, d)  # (N, M)
-    P_next = cov - K_loc @ PHt_full.mT
-    # 0.5·(P + Pᵀ): block (r, j) of Pᵀ is block (j, r) of P transposed, so
-    # one all_to_all hands every rank the blocks it needs
-    blocks = P_next.view(n_loc, d, n_loc).transpose(0, 1).contiguous()  # (d, N/d, N/d)
-    theirs = torch.empty_like(blocks)
-    dist.all_to_all_single(theirs, blocks, group=group)
-    P_t = theirs.transpose(1, 2).transpose(0, 1).reshape(n_loc, N)
-    P_next = 0.5 * (P_next + P_t)
-    if z is None:
-        return mean, P_next
-    mean_full = all_gather_rows(mean, group, d)
-    v = z - H @ mean_full
-    return mean + K_loc @ v, P_next
+    with span("grid.commit"):
+        group = mesh.get_group("mp")
+        d, r = mesh["mp"].size(), mesh.get_local_rank("mp")
+        n_loc, N = cov.shape
+        if n_loc * d != N:
+            raise ValueError(f"{n_loc} rows on each of {d} ranks do not make N = {N}")
+        H_loc = H[:, r * n_loc:(r + 1) * n_loc]  # the columns of H that meet our rows
+        PHt_loc = cov @ H.mT  # (N/d, M) — our rows of P·Hᵀ
+        # S = H P Hᵀ = Σ_ranks H[:, rows] @ PHt[rows]
+        S = H_loc @ PHt_loc
+        with span("grid.collective"):
+            dist.all_reduce(S, group=group)
+        S = S + torch.diag(R_diag)
+        S = 0.5 * (S + S.mT)
+        K_loc = PHt_loc @ kernels.spd_inverse(S.contiguous())  # our rows of the gain
+        PHt_full = all_gather_rows(PHt_loc, group, d)  # (N, M)
+        P_next = cov - K_loc @ PHt_full.mT
+        # 0.5·(P + Pᵀ): block (r, j) of Pᵀ is block (j, r) of P transposed, so
+        # one all_to_all hands every rank the blocks it needs
+        blocks = P_next.view(n_loc, d, n_loc).transpose(0, 1).contiguous()  # (d, N/d, N/d)
+        theirs = torch.empty_like(blocks)
+        with span("grid.collective"):
+            dist.all_to_all_single(theirs, blocks, group=group)
+        P_t = theirs.transpose(1, 2).transpose(0, 1).reshape(n_loc, N)
+        P_next = 0.5 * (P_next + P_t)
+        if z is None:
+            return mean, P_next
+        mean_full = all_gather_rows(mean, group, d)
+        v = z - H @ mean_full
+        return mean + K_loc @ v, P_next
 
 
 def sharded_sweep_gains(
@@ -93,14 +98,15 @@ def sharded_sweep_gains(
     """All-action trace reductions (ops/kalman.kf_sweep_gains) with the
     action axis split over ``mp``: this rank prices actions
     [r·A/d, (r+1)·A/d) and one all_gather returns the (A,) gains."""
-    group = mesh.get_group("mp")
-    d, r = mesh["mp"].size(), mesh.get_local_rank("mp")
-    A, N = H_all.shape[0], cov.shape[0]
-    if A % d or N % d:
-        raise ValueError(f"A = {A} and N = {N} must both divide over mp = {d}")
-    a_loc = A // d
-    mask = diag_mask if diag_mask is not None else torch.ones(N, dtype=cov.dtype,
-                                                              device=cov.device)
-    acts = slice(r * a_loc, (r + 1) * a_loc)
-    gains = kf_sweep_gains(cov, H_all[acts], R_all[acts], mask)
-    return all_gather_rows(gains, group, d)
+    with span("grid.sweep"):
+        group = mesh.get_group("mp")
+        d, r = mesh["mp"].size(), mesh.get_local_rank("mp")
+        A, N = H_all.shape[0], cov.shape[0]
+        if A % d or N % d:
+            raise ValueError(f"A = {A} and N = {N} must both divide over mp = {d}")
+        a_loc = A // d
+        mask = diag_mask if diag_mask is not None else torch.ones(N, dtype=cov.dtype,
+                                                                  device=cov.device)
+        acts = slice(r * a_loc, (r + 1) * a_loc)
+        gains = kf_sweep_gains(cov, H_all[acts], R_all[acts], mask)
+        return all_gather_rows(gains, group, d)

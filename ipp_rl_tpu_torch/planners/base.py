@@ -21,6 +21,7 @@ from ipp_rl_tpu_torch.env.world import BeliefState, IPPWorld
 from ipp_rl_tpu_torch.ops.geometry import euclidean_distances, travel_costs
 from ipp_rl_tpu_torch.ops.kalman import kf_sweep_gains_batched
 from ipp_rl_tpu_torch.ops.rewards import adaptive_mask, reward_from_gain
+from ipp_rl_tpu_torch.utils.tracing import count, span
 
 
 def action_costs_from(world: IPPWorld, pos: torch.Tensor) -> torch.Tensor:
@@ -35,17 +36,18 @@ def sweep_rewards(world: IPPWorld, state: BeliefState, jitter: float = 0.0):
     (rewards (B, A), costs (B, A)) — the all-action sweep
     (ops/kalman.kf_sweep_gains_batched) divided by cost + 1."""
     cfg = world.cfg
-    mask = None
-    if cfg.scenario.adaptive:
-        diag = torch.diagonal(state.cov, dim1=-2, dim2=-1)
-        mask = adaptive_mask(
-            state.mean, diag, cfg.scenario.value_threshold, cfg.scenario.interval_factor
+    with span("plan.sweep"):
+        mask = None
+        if cfg.scenario.adaptive:
+            diag = torch.diagonal(state.cov, dim1=-2, dim2=-1)
+            mask = adaptive_mask(
+                state.mean, diag, cfg.scenario.value_threshold, cfg.scenario.interval_factor
+            )
+        gains = kf_sweep_gains_batched(
+            state.cov, world.sweep_batched, mask, jitter, fast_math=world.fast_sweeps
         )
-    gains = kf_sweep_gains_batched(
-        state.cov, world.sweep_batched, mask, jitter, fast_math=world.fast_sweeps
-    )
-    costs = action_costs_from(world, state.pos)
-    return reward_from_gain(gains, costs), costs
+        costs = action_costs_from(world, state.pos)
+        return reward_from_gain(gains, costs), costs
 
 
 def feasible_mask(
@@ -127,23 +129,25 @@ class Planner:
         world = self.world
         T = max_steps if max_steps is not None else self.max_steps()
         think = think_time_per_step if self.cfg.evaluation.use_effective_mission_time else 0.0
-        state = init_state if init_state is not None else world.init_state(batch_size, generator)
-        history = MissionHistory(world, state)
-        for t in range(T):
-            action = self.plan(state, generator, t, None if draws is None else draws[t])
-            cost = travel_costs(
-                world.actions_xyz[action], state.pos, self.cfg.uav.max_v, self.cfg.uav.max_a
-            )
-            # a mission stays active while it can afford a positive-cost move
-            # (reference planning/greedy_mission.py:79-96)
-            can_move = state.active & (cost <= state.budget) & (cost > 0)
-            state = state.replace(active=can_move)
-            state = world.step_index(
-                state, action, None if noise is None else noise[t], generator
-            )
-            state = charge_think_time(state, can_move, think)
-            history.add(state, world.actions_xyz[action], can_move, cost)
-        return history.result(state)
+        with span("plan.run"):
+            state = (init_state if init_state is not None
+                     else world.init_state(batch_size, generator))
+            history = MissionHistory(world, state)
+            for t in range(T):
+                action = self.plan(state, generator, t, None if draws is None else draws[t])
+                cost = travel_costs(
+                    world.actions_xyz[action], state.pos, self.cfg.uav.max_v, self.cfg.uav.max_a
+                )
+                # a mission stays active while it can afford a positive-cost move
+                # (reference planning/greedy_mission.py:79-96)
+                can_move = state.active & (cost <= state.budget) & (cost > 0)
+                state = state.replace(active=can_move)
+                state = world.step_index(
+                    state, action, None if noise is None else noise[t], generator
+                )
+                state = charge_think_time(state, can_move, think)
+                history.add(state, world.actions_xyz[action], can_move, cost)
+            return history.result(state)
 
 
 def charge_think_time(state: BeliefState, moved: torch.Tensor, think: float) -> BeliefState:
@@ -162,14 +166,16 @@ class MissionHistory:
         self.world = world
         self.B = state.batch_size
         self.budgets = [state.budget]
-        self.metrics = [world.evaluate(state)]
+        with span("plan.evaluate"):
+            self.metrics = [world.evaluate(state)]
         self.wps, self.actives, self.flight = [], [], []
 
     def add(self, state: BeliefState, waypoint: torch.Tensor, moved: torch.Tensor,
             cost: torch.Tensor) -> None:
         """One step: the state after it, the waypoints (B, 3) taken by the
         missions that ``moved`` and their flight costs."""
-        self.metrics.append(self.world.evaluate(state))
+        with span("plan.evaluate"):
+            self.metrics.append(self.world.evaluate(state))
         self.wps.append(torch.where(moved[:, None], waypoint, float("nan")))
         self.budgets.append(state.budget)
         self.actives.append(moved)
@@ -179,14 +185,16 @@ class MissionHistory:
         def host(xs, empty_shape):
             if not xs:
                 return np.zeros(empty_shape)
+            count("host_syncs")
             return torch.stack(xs, dim=1).cpu().numpy()
 
         B = self.B
-        return MissionResult(
-            waypoints=host(self.wps, (B, 0, 3)),
-            metrics={k: host([m[k] for m in self.metrics], None) for k in self.metrics[0]},
-            budgets=host(self.budgets, None),
-            num_steps=host(self.actives, (B, 0)).sum(axis=1),
-            flight_times=host(self.flight, (B, 0)),
-            final_state=final_state,
-        )
+        with span("plan.history"):
+            return MissionResult(
+                waypoints=host(self.wps, (B, 0, 3)),
+                metrics={k: host([m[k] for m in self.metrics], None) for k in self.metrics[0]},
+                budgets=host(self.budgets, None),
+                num_steps=host(self.actives, (B, 0)).sum(axis=1),
+                flight_times=host(self.flight, (B, 0)),
+                final_state=final_state,
+            )

@@ -37,6 +37,7 @@ from ipp_rl_tpu_torch.planners.base import (
     charge_think_time,
 )
 from ipp_rl_tpu_torch.planners.greedy import greedy_search_horizon
+from ipp_rl_tpu_torch.utils.tracing import span
 
 #: penalty of a trajectory that leaves the box or has no length
 PENALTY = 100.0
@@ -107,7 +108,8 @@ def cma_es_minimize(
     best_x, best_f = x0, torch.full((B,), float("inf"), dtype=dt, device=dev)
     rows = torch.arange(B, device=dev)
     for g in range(maxiter):
-        evals, Bm = eigh(st.C)
+        with span("cmaes.eigh"):
+            evals, Bm = eigh(st.C)
         evals = torch.clamp(evals, min=1e-20)
         Dm = Bm * _sqrt(evals)[:, None, :]  # C^{1/2}
         if normals is None:
@@ -184,42 +186,44 @@ class CMAESPlanner(Planner):
         (reference ipp_masha.py:102-140): each waypoint prices the
         mission's hypothetical belief with the edge update, and the
         trajectory's belief takes the measurement while its budget lasts."""
-        cfg, world = self.cfg, self.world
-        B, K, D = flat_wps.shape
-        H = self.horizon
-        wps = flat_wps.reshape(B * K, H, 3)
-        oob = torch.any(out_of_bounds(wps, cfg), dim=-1)
+        with span("cmaes.fitness"):
+            cfg, world = self.cfg, self.world
+            B, K, D = flat_wps.shape
+            H = self.horizon
+            wps = flat_wps.reshape(B * K, H, 3)
+            oob = torch.any(out_of_bounds(wps, cfg), dim=-1)
 
-        def per_member(x):
-            return x.repeat_interleave(K, dim=0)
+            def per_member(x):
+                return x.repeat_interleave(K, dim=0)
 
-        prevs = torch.cat([per_member(pos)[:, None, :], wps[:, :-1]], dim=1)
-        seg_costs = travel_costs(wps, prevs, cfg.uav.max_v, cfg.uav.max_a)  # (BK, H)
-        path_cost = torch.sum(seg_costs, dim=-1)
+            prevs = torch.cat([per_member(pos)[:, None, :], wps[:, :-1]], dim=1)
+            seg_costs = travel_costs(wps, prevs, cfg.uav.max_v, cfg.uav.max_a)  # (BK, H)
+            path_cost = torch.sum(seg_costs, dim=-1)
 
-        dm = None
-        if cfg.scenario.adaptive:
-            dm = per_member(adaptive_mask(
-                mean, torch.diagonal(cov, dim1=-2, dim2=-1),
-                cfg.scenario.value_threshold, cfg.scenario.interval_factor).to(cov.dtype))
+            dm = None
+            if cfg.scenario.adaptive:
+                dm = per_member(adaptive_mask(
+                    mean, torch.diagonal(cov, dim1=-2, dim2=-1),
+                    cfg.scenario.value_threshold, cfg.scenario.interval_factor).to(cov.dtype))
 
-        P = per_member(cov)
-        rem = per_member(budget)
-        total = torch.zeros_like(rem)
-        alive = torch.ones_like(rem, dtype=torch.bool)
-        for h in range(H):
-            cost = seg_costs[:, h]
-            alive = alive & (cost <= rem)
-            Hm, R, _, _ = world.measurement_model_at(wps[:, h].contiguous())
-            WcT, gain = kf_edge_factor_gain_per_sample(P, Hm, R, dm)
-            reward = gain / (cost + 1.0)
-            total = total + torch.where(alive, reward * (cost + 1.0), 0.0)
-            if h + 1 < H:  # the last waypoint's belief is never read
-                P = torch.where(alive[:, None, None], torch.baddbmm(P, WcT.mT, WcT, alpha=-1), P)
-            rem = torch.where(alive, rem - cost, rem)
-        loss = -total / torch.clamp(path_cost, min=1e-12)
-        bad = oob | (path_cost <= 0)
-        return torch.where(bad, PENALTY, loss).view(B, K)
+            P = per_member(cov)
+            rem = per_member(budget)
+            total = torch.zeros_like(rem)
+            alive = torch.ones_like(rem, dtype=torch.bool)
+            for h in range(H):
+                cost = seg_costs[:, h]
+                alive = alive & (cost <= rem)
+                Hm, R, _, _ = world.measurement_model_at(wps[:, h].contiguous())
+                WcT, gain = kf_edge_factor_gain_per_sample(P, Hm, R, dm)
+                reward = gain / (cost + 1.0)
+                total = total + torch.where(alive, reward * (cost + 1.0), 0.0)
+                if h + 1 < H:  # the last waypoint's belief is never read
+                    P = torch.where(alive[:, None, None],
+                                    torch.baddbmm(P, WcT.mT, WcT, alpha=-1), P)
+                rem = torch.where(alive, rem - cost, rem)
+            loss = -total / torch.clamp(path_cost, min=1e-12)
+            bad = oob | (path_cost <= 0)
+            return torch.where(bad, PENALTY, loss).view(B, K)
 
     def replan_batch(
         self,
@@ -233,23 +237,26 @@ class CMAESPlanner(Planner):
         world, cfg = self.world, self.cfg
         H, B = self.horizon, state.batch_size
         dt, dev = world.dtype, world.device
-        actions, valids = greedy_search_horizon(world, state, H)
-        x0 = world.actions_xyz[actions].reshape(B, 3 * H)
-        lower = torch.tensor([0.0, 0.0, cfg.constraints.min_altitude], dtype=dt,
-                             device=dev).repeat(H)
-        upper = torch.tensor([cfg.environment.extent_x, cfg.environment.extent_y,
-                              cfg.constraints.max_altitude], dtype=dt, device=dev).repeat(H)
-        scales = torch.as_tensor(self.sigma_scales, device=dev).to(dt)
+        with span("cmaes.replan"):
+            actions, valids = greedy_search_horizon(world, state, H)
+            x0 = world.actions_xyz[actions].reshape(B, 3 * H)
+            lower = torch.tensor([0.0, 0.0, cfg.constraints.min_altitude], dtype=dt,
+                                 device=dev).repeat(H)
+            upper = torch.tensor([cfg.environment.extent_x, cfg.environment.extent_y,
+                                  cfg.constraints.max_altitude], dtype=dt, device=dev).repeat(H)
+            scales = torch.as_tensor(self.sigma_scales, device=dev).to(dt)
 
-        def objective(x):
-            return self.trajectory_loss(x, state.cov, state.mean, state.pos, state.budget)
+            def objective(x):
+                return self.trajectory_loss(x, state.cov, state.mean, state.pos, state.budget)
 
-        best_x, best_f = cma_es_minimize(objective, x0, scales, lower, upper, self.popsize,
-                                         self.maxiter, normals, generator, self.eigh)
-        greedy_f = objective(x0[:, None, :])[:, 0]
-        # keep greedy unless CMA-ES beats it (reference :214-215)
-        wps = torch.where((best_f < greedy_f)[:, None], best_x, x0)
-        return wps.reshape(B, H, 3), valids[:, 0]
+            with span("cmaes.minimize"):
+                best_x, best_f = cma_es_minimize(objective, x0, scales, lower, upper,
+                                                 self.popsize, self.maxiter, normals, generator,
+                                                 self.eigh)
+            greedy_f = objective(x0[:, None, :])[:, 0]
+            # keep greedy unless CMA-ES beats it (reference :214-215)
+            wps = torch.where((best_f < greedy_f)[:, None], best_x, x0)
+            return wps.reshape(B, H, 3), valids[:, 0]
 
     def run(
         self,
@@ -270,16 +277,19 @@ class CMAESPlanner(Planner):
         world, cfg = self.world, self.cfg
         think = think_time_per_step if cfg.evaluation.use_effective_mission_time else 0.0
         T = max_steps if max_steps is not None else self.max_steps()
-        state = init_state if init_state is not None else world.init_state(batch_size, generator)
-        history = MissionHistory(world, state)
-        for t in range(T):
-            wps, any_valid = self.replan_batch(state, None if draws is None else draws[t],
-                                               generator)
-            wp = wps[:, 0, :]
-            cost = travel_costs(wp, state.pos, cfg.uav.max_v, cfg.uav.max_a)
-            can_move = state.active & any_valid & (cost <= state.budget) & (cost > 0)
-            state = state.replace(active=can_move)
-            state = world.step_position(state, wp, None if noise is None else noise[t], generator)
-            state = charge_think_time(state, can_move, think)
-            history.add(state, wp, can_move, cost)
-        return history.result(state)
+        with span("plan.run"):
+            state = (init_state if init_state is not None
+                     else world.init_state(batch_size, generator))
+            history = MissionHistory(world, state)
+            for t in range(T):
+                wps, any_valid = self.replan_batch(state, None if draws is None else draws[t],
+                                                   generator)
+                wp = wps[:, 0, :]
+                cost = travel_costs(wp, state.pos, cfg.uav.max_v, cfg.uav.max_a)
+                can_move = state.active & any_valid & (cost <= state.budget) & (cost > 0)
+                state = state.replace(active=can_move)
+                state = world.step_position(state, wp, None if noise is None else noise[t],
+                                            generator)
+                state = charge_think_time(state, can_move, think)
+                history.add(state, wp, can_move, cost)
+            return history.result(state)

@@ -16,6 +16,7 @@ import torch
 from ipp_rl_tpu_torch.env.world import BeliefState
 from ipp_rl_tpu_torch.ops.kalman import kf_update
 from ipp_rl_tpu_torch.planners.base import Planner, feasible_mask, sweep_rewards
+from ipp_rl_tpu_torch.utils.tracing import span
 
 
 class GreedyPlanner(Planner):
@@ -41,16 +42,17 @@ def greedy_search_horizon(world, state: BeliefState, horizon: int):
     Returns (waypoint indices (B, horizon), valid (B, horizon))."""
     cov, pos, budget = state.cov, state.pos, state.budget
     actions, valids = [], []
-    for _ in range(horizon):
-        rewards, costs = sweep_rewards(world, state.replace(cov=cov, pos=pos, budget=budget))
-        ok = feasible_mask(budget, costs)
-        a = torch.argmax(torch.where(ok, rewards, float("-inf")), dim=-1)
-        any_ok = torch.any(ok, dim=-1)
-        cost_a = torch.gather(costs, -1, a[:, None])[:, 0]
-        _, cov_next = kf_update(cov, state.mean, world.H[a], world.R_diag[a], z=None)
-        cov = torch.where(any_ok[:, None, None], cov_next, cov)
-        pos = torch.where(any_ok[:, None], world.actions_xyz[a], pos)
-        budget = torch.where(any_ok, budget - cost_a, budget)
-        actions.append(a)
-        valids.append(any_ok)
-    return torch.stack(actions, dim=1), torch.stack(valids, dim=1)
+    with span("cmaes.init"):
+        for _ in range(horizon):
+            rewards, costs = sweep_rewards(world, state.replace(cov=cov, pos=pos, budget=budget))
+            ok = feasible_mask(budget, costs)
+            a = torch.argmax(torch.where(ok, rewards, float("-inf")), dim=-1)
+            any_ok = torch.any(ok, dim=-1)
+            cost_a = torch.gather(costs, -1, a[:, None])[:, 0]
+            _, cov_next = kf_update(cov, state.mean, world.H[a], world.R_diag[a], z=None)
+            cov = torch.where(any_ok[:, None, None], cov_next, cov)
+            pos = torch.where(any_ok[:, None], world.actions_xyz[a], pos)
+            budget = torch.where(any_ok, budget - cost_a, budget)
+            actions.append(a)
+            valids.append(any_ok)
+        return torch.stack(actions, dim=1), torch.stack(valids, dim=1)

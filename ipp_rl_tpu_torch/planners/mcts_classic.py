@@ -42,6 +42,7 @@ from ipp_rl_tpu_torch.ops.kalman import kf_edge_factor_gain, kf_sweep_gains_batc
 from ipp_rl_tpu_torch.ops.rewards import adaptive_mask, reward_from_gain
 from ipp_rl_tpu_torch.planners.base import Planner
 from ipp_rl_tpu_torch.planners.zero.mcts import rand_argmax
+from ipp_rl_tpu_torch.utils.tracing import span
 
 NO_NODE = -1
 
@@ -138,20 +139,23 @@ class ClassicMCTSPlanner(Planner):
         (mcts_classic.py:103-114): the world's H and R tables are exact
         for lattice actions, so one ``edge_factor_gain`` launch."""
         w = self.world
-        return kf_edge_factor_gain(P, w.H, w.R_diag, a, dmask)
+        with span("classic.edge"):
+            return kf_edge_factor_gain(P, w.H, w.R_diag, a, dmask)
 
     @staticmethod
     def _downdate(P, WcT, keep) -> torch.Tensor:
         """P − Wc·Wcᵀ for the rows where ``keep`` (R,) is set, else P: the
         rank-M update along an edge (mcts_classic.py:154, :294)."""
-        return torch.where(keep[:, None, None], P - WcT.mT @ WcT, P)
+        with span("classic.edge"):
+            return torch.where(keep[:, None, None], P - WcT.mT @ WcT, P)
 
     def _sweep_rewards(self, P, costs, dmask) -> torch.Tensor:
         """(R, A) reward of every action against the covariances P (R, N, N)
         with flight costs (R, A) (mcts_classic.py:94-101): one all-action
         sweep in full precision, as the JAX planner's structured sweep."""
-        gains = kf_sweep_gains_batched(P, self.world.sweep_batched, dmask, fast_math=False)
-        return reward_from_gain(gains, costs)
+        with span("classic.sweep"):
+            gains = kf_sweep_gains_batched(P, self.world.sweep_batched, dmask, fast_math=False)
+            return reward_from_gain(gains, costs)
 
     def _policy_action(self, P, costs, avail, dmask, eps, g_rand, u_mode, g_soft) -> torch.Tensor:
         """ε-greedy (or, with ``g_soft``, GCB softmax) action of every row
@@ -407,15 +411,21 @@ class ClassicMCTSPlanner(Planner):
         def rows(x):
             return x.repeat_interleave(W, dim=0) if W > 1 else x
 
-        P_root, pos, mean = rows(state.cov), rows(state.pos), rows(state.mean)
-        tree = self._init_tree(P_root.shape[0], rows(state.budget))
-        for i in range(self.num_simulations):
-            P, leaf_pos, budget, rollout_node, path_nodes, path_rewards, path_len = self._descend(
-                tree, P_root, pos, mean, i, draws, generator)
-            G = self._rollout(P, leaf_pos, budget, mean, i, draws, generator)
-            rollout_value = torch.where(rollout_node >= 0, G, 0.0)  # (:315-319)
-            self._backup(tree, rollout_node, rollout_value, path_nodes, path_rewards, path_len)
-        return tree, self.root_stats(tree)
+        with span("classic.search"):
+            P_root, pos, mean = rows(state.cov), rows(state.pos), rows(state.mean)
+            tree = self._init_tree(P_root.shape[0], rows(state.budget))
+            for i in range(self.num_simulations):
+                with span("classic.descent"):
+                    P, leaf_pos, budget, rollout_node, path_nodes, path_rewards, path_len = (
+                        self._descend(tree, P_root, pos, mean, i, draws, generator))
+                with span("classic.rollout"):
+                    G = self._rollout(P, leaf_pos, budget, mean, i, draws, generator)
+                rollout_value = torch.where(rollout_node >= 0, G, 0.0)  # (:315-319)
+                with span("classic.backup"):
+                    self._backup(tree, rollout_node, rollout_value, path_nodes, path_rewards,
+                                 path_len)
+            with span("classic.backup"):
+                return tree, self.root_stats(tree)
 
     def plan(self, state: BeliefState, generator: Optional[torch.Generator], step: int,
              draws: Optional[ClassicDraws] = None) -> torch.Tensor:

@@ -60,6 +60,7 @@ from ipp_rl_tpu_torch.planners.zero.train import (
     split_predict_fn,
 )
 from ipp_rl_tpu_torch.serialization import read_checkpoint, write_checkpoint
+from ipp_rl_tpu_torch.utils.tracing import span
 
 logger = logging.getLogger(__name__)
 
@@ -445,10 +446,11 @@ class ZeroLearner:
             if skip_first_self_play and iteration == start_iteration:
                 episode_values = np.zeros((1,), np.float32)  # reuse the persisted examples
             else:
-                traj_dev, ep_dev = self.selfplay.run(
-                    self.num_envs, net_variables=self.state.variables(),
-                    puct_init=self.puct_init, dirichlet_alpha=self.dirichlet_alpha,
-                    generator=self.generator)
+                with span("zero.selfplay"):
+                    traj_dev, ep_dev = self.selfplay.run(
+                        self.num_envs, net_variables=self.state.variables(),
+                        puct_init=self.puct_init, dirichlet_alpha=self.dirichlet_alpha,
+                        generator=self.generator)
                 traj = traj_dev.map(lambda x: x.cpu().numpy())
                 episode_values = ep_dev.cpu().numpy()
                 # the device copy stays for the fused epoch runner
@@ -461,7 +463,8 @@ class ZeroLearner:
             save_checkpoint(temp_path, self.state)
 
             t1 = time.time()
-            metrics = self.train_iteration(num_train_batches)
+            with span("zero.train"):
+                metrics = self.train_iteration(num_train_batches)
             train_time = time.time() - t1
 
             save_checkpoint(os.path.join(self.checkpoints_dir, f"shared_net.snapshot_{iteration}"),

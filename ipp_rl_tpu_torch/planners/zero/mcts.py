@@ -47,6 +47,7 @@ from ipp_rl_tpu_torch.ops.kalman import kf_edge_factor_gain
 from ipp_rl_tpu_torch.ops.rewards import adaptive_mask
 from ipp_rl_tpu_torch.planners.zero.features import EpisodeHistory, feature_planes, push_history
 from ipp_rl_tpu_torch.planners.zero.train import cast_variables
+from ipp_rl_tpu_torch.utils.tracing import count, span
 
 NO_CHILD = -1
 ROOT_ACTION = -1
@@ -128,6 +129,13 @@ class _Descent:
     path_len: torch.Tensor  # (B,)
 
 
+def read_flag(flag: torch.Tensor) -> bool:
+    """``bool(flag)``: a read from the device, which waits for it; counted
+    as one of the host's syncs (``host_syncs``)."""
+    count("host_syncs")
+    return bool(flag)
+
+
 def normalize_q(values: torch.Tensor) -> torch.Tensor:
     """Min-max normalisation over the last axis with the reference's
     degenerate rules (reference mcts.py:267-278): all zero → zeros;
@@ -157,7 +165,7 @@ def standard_gamma(alpha: float, shape, generator, dtype, device) -> torch.Tenso
     c = 1.0 / math.sqrt(9.0 * d)
     out = torch.zeros(shape, dtype=dtype, device=device)
     todo = torch.ones(shape, dtype=torch.bool, device=device)
-    while bool(todo.any()):
+    while read_flag(todo.any()):
         x = torch.randn(shape, generator=generator, dtype=dtype, device=device)
         u = torch.rand(shape, generator=generator, dtype=dtype, device=device)
         v = (1.0 + c * x) ** 3
@@ -284,6 +292,7 @@ class ZeroMCTS:
     def _descend_step(self, i: int, tree: Tree, c: _Descent, draws, diag_mask, puct_init,
                       forced_playouts: bool) -> _Descent:
         """One descent step of every mission (fully masked where done)."""
+        count("zero.descent_steps")
         world = self.world
         dt = tree.Qsa.dtype
         b = torch.arange(c.node.shape[0], device=c.node.device)
@@ -348,52 +357,63 @@ class ZeroMCTS:
         root-pushed episode history: ring[j] is path entry plen − 1 − j
         while that exists, else hist_root[j − plen].  Returns (history,
         valid-action mask (B, A), leaf position (B, 3))."""
-        L = self.L
-        xyz = self.world.actions_xyz
-        plen = c.path_len[:, None]
-        js = torch.arange(L, device=plen.device)[None, :]
-        kk = plen - 1 - js  # (B, L)
-        on_path = kk >= 0
-        p_sel = torch.clamp(kk, min=0)
-        h_sel = torch.clamp(js - plen, 0, L - 1)
-        rows = torch.arange(plen.shape[0], device=plen.device)[:, None]
-        path_pos = xyz[torch.clamp(c.path_actions.gather(1, p_sel), min=0)]
-        hist_leaf = EpisodeHistory(
-            covs=torch.where(on_path[..., None, None], c.path_covs[rows, p_sel],
-                             hist_root.covs[rows, h_sel]),
-            positions=torch.where(on_path[..., None], path_pos, hist_root.positions[rows, h_sel]),
-            budgets=torch.where(on_path, c.path_bfr.gather(1, p_sel),
-                                hist_root.budgets.gather(1, h_sel)),
-            length=torch.clamp(hist_root.length + c.path_len, max=L).to(torch.int32),
-        )
-        # leaf planes are inference only: build the ring at the inference
-        # dtype so the plane build is half-width end to end
-        infer_dt = getattr(self.predict, "infer_dtype", None)
-        if infer_dt is not None:
-            hist_leaf = hist_leaf.replace(
-                covs=hist_leaf.covs.to(infer_dt),
-                positions=hist_leaf.positions.to(infer_dt),
-                budgets=hist_leaf.budgets.to(infer_dt),
+        with span("zero.leaf"):
+            L = self.L
+            xyz = self.world.actions_xyz
+            plen = c.path_len[:, None]
+            js = torch.arange(L, device=plen.device)[None, :]
+            kk = plen - 1 - js  # (B, L)
+            on_path = kk >= 0
+            p_sel = torch.clamp(kk, min=0)
+            h_sel = torch.clamp(js - plen, 0, L - 1)
+            rows = torch.arange(plen.shape[0], device=plen.device)[:, None]
+            path_pos = xyz[torch.clamp(c.path_actions.gather(1, p_sel), min=0)]
+            hist_leaf = EpisodeHistory(
+                covs=torch.where(on_path[..., None, None], c.path_covs[rows, p_sel],
+                                 hist_root.covs[rows, h_sel]),
+                positions=torch.where(on_path[..., None], path_pos,
+                                      hist_root.positions[rows, h_sel]),
+                budgets=torch.where(on_path, c.path_bfr.gather(1, p_sel),
+                                    hist_root.budgets.gather(1, h_sel)),
+                length=torch.clamp(hist_root.length + c.path_len, max=L).to(torch.int32),
             )
-        last = c.path_actions.gather(1, torch.clamp(plen - 1, min=0))[:, 0]
-        leaf_pos = torch.where(plen > 0, xyz[torch.clamp(last, min=0)], root_pos)
-        return hist_leaf, self.valid_actions(leaf_pos, c.budget), leaf_pos
+            # leaf planes are inference only: build the ring at the inference
+            # dtype so the plane build is half-width end to end
+            infer_dt = getattr(self.predict, "infer_dtype", None)
+            if infer_dt is not None:
+                hist_leaf = hist_leaf.replace(
+                    covs=hist_leaf.covs.to(infer_dt),
+                    positions=hist_leaf.positions.to(infer_dt),
+                    budgets=hist_leaf.budgets.to(infer_dt),
+                )
+            last = c.path_actions.gather(1, torch.clamp(plen - 1, min=0))[:, 0]
+            leaf_pos = torch.where(plen > 0, xyz[torch.clamp(last, min=0)], root_pos)
+            return hist_leaf, self.valid_actions(leaf_pos, c.budget), leaf_pos
 
     def leaf_planes(self, hist_leaf: EpisodeHistory, mean: torch.Tensor) -> torch.Tensor:
         """(B, N, N, C) planes of the leaves (planners/zero/features.py)."""
-        infer_dt = getattr(self.predict, "infer_dtype", None)
-        if infer_dt is not None:
-            # every plane-build operand at the inference dtype, so no op
-            # promotes back to float32
-            mean = mean.to(infer_dt)
-        return feature_planes(self.world, self.hp, hist_leaf, mean=mean)
+        with span("zero.leaf"):
+            infer_dt = getattr(self.predict, "infer_dtype", None)
+            if infer_dt is not None:
+                # every plane-build operand at the inference dtype, so no op
+                # promotes back to float32
+                mean = mean.to(infer_dt)
+            return feature_planes(self.world, self.hp, hist_leaf, mean=mean)
+
+    def _forward(self, variables, planes: torch.Tensor, mask: torch.Tensor):
+        """The network's forward over the leaves' planes (``predict``),
+        counted with its batch rows."""
+        count("zero.forwards")
+        count("zero.forward_samples", planes.shape[0])
+        with span("zero.forward"):
+            return self.predict(variables, planes, mask)
 
     def _eval_leaves(self, variables, hist_leaf: EpisodeHistory, leaf_mask, mean, dt):
         """Plane build + batched network forward, in mission chunks of
         ``eval_chunk`` when that is set and smaller than the batch."""
         B, G = leaf_mask.shape[0], self.eval_chunk
         if not (G and B > G):
-            return self.predict(variables, self.leaf_planes(hist_leaf, mean), leaf_mask.to(dt))
+            return self._forward(variables, self.leaf_planes(hist_leaf, mean), leaf_mask.to(dt))
         # pad to whole chunks by repeating leading rows (pad < G < B)
         pad = (-B) % G
         if pad:
@@ -404,9 +424,10 @@ class ZeroMCTS:
         policies, values = [], []
         for start in range(0, B + pad, G):
             part = slice(start, start + G)
-            pol, val = self.predict(variables,
-                                    self.leaf_planes(hist_leaf.map(lambda x: x[part]), mean[part]),
-                                    leaf_mask[part].to(dt))
+            pol, val = self._forward(variables,
+                                     self.leaf_planes(hist_leaf.map(lambda x: x[part]),
+                                                      mean[part]),
+                                     leaf_mask[part].to(dt))
             policies.append(pol)
             values.append(val)
         return torch.cat(policies)[:B], torch.cat(values)[:B]
@@ -417,50 +438,52 @@ class ZeroMCTS:
         (reference mcts.py:185-233), with the Dirichlet noise added at the
         root's first evaluation (:160-164, 221-222); returns the leaf
         values to back up (0 at terminal leaves)."""
-        hp = self.hp
-        dt = tree.prior.dtype
-        b = torch.arange(leaf.shape[0], device=leaf.device)
-        leaf_ok = leaf >= 0
-        idx = torch.clamp(leaf, min=0)
-        lm = leaf_mask.to(dt)
+        with span("zero.backup"):
+            hp = self.hp
+            dt = tree.prior.dtype
+            b = torch.arange(leaf.shape[0], device=leaf.device)
+            leaf_ok = leaf >= 0
+            idx = torch.clamp(leaf, min=0)
+            lm = leaf_mask.to(dt)
 
-        p = policy.to(dt) * lm
-        p_noised = (1.0 - hp.dirichlet_eps) * p + hp.dirichlet_eps * noise.to(dt)
-        p = torch.where((is_root_first & leaf_ok)[:, None], p_noised * lm, p)
-        s = torch.sum(p, dim=-1, keepdim=True)
-        # degenerate-policy repair (reference mcts.py:224-229)
-        p = torch.where(s > 0, p / torch.clamp(s, min=1e-30), lm)
-        p = p / torch.clamp(torch.sum(p, dim=-1, keepdim=True), min=1e-30)
+            p = policy.to(dt) * lm
+            p_noised = (1.0 - hp.dirichlet_eps) * p + hp.dirichlet_eps * noise.to(dt)
+            p = torch.where((is_root_first & leaf_ok)[:, None], p_noised * lm, p)
+            s = torch.sum(p, dim=-1, keepdim=True)
+            # degenerate-policy repair (reference mcts.py:224-229)
+            p = torch.where(s > 0, p / torch.clamp(s, min=1e-30), lm)
+            p = p / torch.clamp(torch.sum(p, dim=-1, keepdim=True), min=1e-30)
 
-        no_valid = torch.sum(leaf_mask, dim=-1) == 0
-        ok = leaf_ok & ~no_valid
-        value_out = torch.where(ok, value, 0.0)
-        tree.prior[b, idx] = torch.where(ok[:, None], p, tree.prior[b, idx])
-        tree.valid[b, idx] = torch.where(ok[:, None], leaf_mask, tree.valid[b, idx])
-        tree.expanded[b, idx] = ok | tree.expanded[b, idx]
-        tree.Ns[b, idx] = torch.where(ok, 0.0, tree.Ns[b, idx])
-        return value_out
+            no_valid = torch.sum(leaf_mask, dim=-1) == 0
+            ok = leaf_ok & ~no_valid
+            value_out = torch.where(ok, value, 0.0)
+            tree.prior[b, idx] = torch.where(ok[:, None], p, tree.prior[b, idx])
+            tree.valid[b, idx] = torch.where(ok[:, None], leaf_mask, tree.valid[b, idx])
+            tree.expanded[b, idx] = ok | tree.expanded[b, idx]
+            tree.Ns[b, idx] = torch.where(ok, 0.0, tree.Ns[b, idx])
+            return value_out
 
     def _backup(self, tree: Tree, c: _Descent, leaf_value: torch.Tensor, steps: int) -> None:
         """G_k = r_k + γ·G_{k+1} backwards along each path; Q ← (N·Q + G)/(N+1)
         (reference mcts.py:250-265).  Paths are at most ``steps`` edges
         long (the descent's step count); entries past a path's length are
         masked no-ops."""
-        gamma = self.hp.gamma
-        b = torch.arange(leaf_value.shape[0], device=leaf_value.device)
-        G = leaf_value
-        for k in reversed(range(steps)):
-            on = k < c.path_len
-            node = torch.clamp(c.path_nodes[:, k], min=0)
-            a = torch.clamp(c.path_actions[:, k], min=0)
-            G_new = c.path_rewards[:, k] + gamma * G
-            nsa, q = tree.Nsa[b, node, a], tree.Qsa[b, node, a]
-            q_new = torch.where(nsa > 0, (nsa * q + G_new) / (nsa + 1.0), G_new)
-            step = on.to(tree.Nsa.dtype)
-            tree.Qsa[b, node, a] = torch.where(on, q_new, q)
-            tree.Nsa[b, node, a] = nsa + step
-            tree.Ns[b, node] = tree.Ns[b, node] + step
-            G = torch.where(on, G_new, G)
+        with span("zero.backup"):
+            gamma = self.hp.gamma
+            b = torch.arange(leaf_value.shape[0], device=leaf_value.device)
+            G = leaf_value
+            for k in reversed(range(steps)):
+                on = k < c.path_len
+                node = torch.clamp(c.path_nodes[:, k], min=0)
+                a = torch.clamp(c.path_actions[:, k], min=0)
+                G_new = c.path_rewards[:, k] + gamma * G
+                nsa, q = tree.Nsa[b, node, a], tree.Qsa[b, node, a]
+                q_new = torch.where(nsa > 0, (nsa * q + G_new) / (nsa + 1.0), G_new)
+                step = on.to(tree.Nsa.dtype)
+                tree.Qsa[b, node, a] = torch.where(on, q_new, q)
+                tree.Nsa[b, node, a] = nsa + step
+                tree.Ns[b, node] = tree.Ns[b, node] + step
+                G = torch.where(on, G_new, G)
 
     # --------------------------------------------------------------- search
 
@@ -530,13 +553,14 @@ class ZeroMCTS:
             # early exit: stop once every mission reached its leaf (one
             # flag read from the device per step)
             j = 0
-            while j < Hc and (j == 0 or not bool(c.done.all())):
-                if draws is not None:
-                    u = draws.select[i, j]
-                else:
-                    u = torch.rand((B, self.A), generator=generator, dtype=dt, device=dev)
-                c = self._descend_step(j, tree, c, u, dmask, p_init, forced_playouts)
-                j += 1
+            with span("zero.descent"):
+                while j < Hc and (j == 0 or not read_flag(c.done.all())):
+                    if draws is not None:
+                        u = draws.select[i, j]
+                    else:
+                        u = torch.rand((B, self.A), generator=generator, dtype=dt, device=dev)
+                    c = self._descend_step(j, tree, c, u, dmask, p_init, forced_playouts)
+                    j += 1
             hist_leaf, leaf_mask, _ = self._leaf_outputs(c, hist_root, pos)
             policy, value = self._eval_leaves(net_variables, hist_leaf, leaf_mask, mean, dt)
             is_root_first = first & (c.leaf == 0) & root_noise

@@ -33,6 +33,7 @@ from ipp_rl_tpu_torch.planners.zero.features import (
     push_history,
 )
 from ipp_rl_tpu_torch.planners.zero.mcts import SearchDraws, ZeroMCTS, rand_argmax
+from ipp_rl_tpu_torch.utils.tracing import span
 
 
 @dataclasses.dataclass
@@ -80,44 +81,46 @@ class ZeroPlanner(Planner):
         draws: Optional[ReplanDraws],
     ) -> torch.Tensor:
         """One planning decision for the whole batch: (B,) actions."""
-        hp = self.hp
-        dt = self.world.dtype
-        B = state.batch_size
-        if hp.num_mcts_simulations <= 0:
-            # raw policy-net argmax (reference :478-502)
-            planes = feature_planes(self.world, hp, hist, state.mean)
-            masks = self.mcts.valid_actions(state.pos, state.budget)
-            policy, _ = self.predict(self.variables, planes, masks.to(dt))
-            return torch.argmax(policy * masks, dim=-1)
+        with span("zero.replan"):
+            hp = self.hp
+            dt = self.world.dtype
+            B = state.batch_size
+            if hp.num_mcts_simulations <= 0:
+                # raw policy-net argmax (reference :478-502)
+                planes = feature_planes(self.world, hp, hist, state.mean)
+                masks = self.mcts.valid_actions(state.pos, state.budget)
+                policy, _ = self.predict(self.variables, planes, masks.to(dt))
+                return torch.argmax(policy * masks, dim=-1)
 
-        W = self.num_root_parallel
-        clean = self.deploy_mode == "clean"
-        search_draws = None
-        if draws is not None:
-            search_draws = SearchDraws(
-                select=torch.cat([d.select for d in draws.search], dim=2),
-                root_noise=None if clean else torch.cat([d.root_noise for d in draws.search]),
+            W = self.num_root_parallel
+            clean = self.deploy_mode == "clean"
+            search_draws = None
+            if draws is not None:
+                search_draws = SearchDraws(
+                    select=torch.cat([d.select for d in draws.search], dim=2),
+                    root_noise=None if clean else torch.cat([d.root_noise for d in draws.search]),
+                )
+
+            def tile(x):  # W copies of the batch, worker-major
+                return x.repeat((W,) + (1,) * (x.ndim - 1)) if W > 1 else x
+
+            tree, _ = self.mcts.search(
+                tile(state.cov), tile(state.mean), tile(state.pos), tile(state.budget),
+                hist.map(tile),
+                net_variables=self.variables,
+                forced_playouts=not clean,
+                root_noise=not clean,
+                generator=generator,
+                draws=search_draws,
             )
-
-        def tile(x):  # W copies of the batch, worker-major
-            return x.repeat((W,) + (1,) * (x.ndim - 1)) if W > 1 else x
-
-        tree, _ = self.mcts.search(
-            tile(state.cov), tile(state.mean), tile(state.pos), tile(state.budget), hist.map(tile),
-            net_variables=self.variables,
-            forced_playouts=not clean,
-            root_noise=not clean,
-            generator=generator,
-            draws=search_draws,
-        )
-        visits = tree.Nsa[:, 0].reshape(W, B, -1).sum(dim=0)  # (B, A)
-        # random tie-break among the most-visited actions: a plain argmax
-        # is biased to the first index, which matters at few simulations
-        if draws is not None:
-            tie = draws.tie
-        else:
-            tie = torch.rand(visits.shape, generator=generator, dtype=dt, device=visits.device)
-        return rand_argmax(visits, tie)
+            visits = tree.Nsa[:, 0].reshape(W, B, -1).sum(dim=0)  # (B, A)
+            # random tie-break among the most-visited actions: a plain argmax
+            # is biased to the first index, which matters at few simulations
+            if draws is not None:
+                tie = draws.tie
+            else:
+                tie = torch.rand(visits.shape, generator=generator, dtype=dt, device=visits.device)
+            return rand_argmax(visits, tie)
 
     def run(
         self,
@@ -141,25 +144,28 @@ class ZeroPlanner(Planner):
         world, cfg, hp = self.world, self.cfg, self.hp
         T = max_steps if max_steps is not None else self.max_steps()
         think = think_time_per_step if cfg.evaluation.use_effective_mission_time else 0.0
-        state = init_state if init_state is not None else world.init_state(batch_size, generator)
-        hist = init_history(cfg, hp, state.batch_size, world.dtype, world.device)
-        history = MissionHistory(world, state)
-        for t in range(T):
-            hist = push_history(hist, state.cov, state.pos,
-                                state.budget / float(cfg.constraints.budget))
-            action = self._replan(state, hist, generator, None if draws is None else draws[t])
-            cost = travel_costs(
-                world.actions_xyz[action], state.pos, cfg.uav.max_v, cfg.uav.max_a
-            )
-            # the replan loop runs while budget >= resolution (reference :613)
-            can_move = (
-                state.active
-                & (state.budget >= cfg.environment.resolution)
-                & (cost <= state.budget)
-                & (cost > 0)
-            )
-            state = state.replace(active=can_move)
-            state = world.step_index(state, action, None if noise is None else noise[t], generator)
-            state = charge_think_time(state, can_move, think)
-            history.add(state, world.actions_xyz[action], can_move, cost)
-        return history.result(state)
+        with span("plan.run"):
+            state = (init_state if init_state is not None
+                     else world.init_state(batch_size, generator))
+            hist = init_history(cfg, hp, state.batch_size, world.dtype, world.device)
+            history = MissionHistory(world, state)
+            for t in range(T):
+                hist = push_history(hist, state.cov, state.pos,
+                                    state.budget / float(cfg.constraints.budget))
+                action = self._replan(state, hist, generator, None if draws is None else draws[t])
+                cost = travel_costs(
+                    world.actions_xyz[action], state.pos, cfg.uav.max_v, cfg.uav.max_a
+                )
+                # the replan loop runs while budget >= resolution (reference :613)
+                can_move = (
+                    state.active
+                    & (state.budget >= cfg.environment.resolution)
+                    & (cost <= state.budget)
+                    & (cost > 0)
+                )
+                state = state.replace(active=can_move)
+                state = world.step_index(state, action, None if noise is None else noise[t],
+                                         generator)
+                state = charge_think_time(state, can_move, think)
+                history.add(state, world.actions_xyz[action], can_move, cost)
+            return history.result(state)

@@ -207,12 +207,12 @@ def test_cpu_route_launches_nothing(refs):
     H = port["H"][port["a"]]
     A = H @ port["P"]
     args = (A @ H.mT, A, port["R"], port["a"], port["mask"])
-    before = kernels.edge_factor_gain.launches
+    before = kernels.launch_counts()
     got = kernels.edge_factor_gain(*args)
     want = smallchol.edge_factor_gain(*args)
     kalman.kf_edge_factor_gain(port["P"], port["H"], port["R"], port["a"], port["mask"])
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    assert kernels.edge_factor_gain.launches == before
+    assert kernels.launch_counts() == before
 
 
 def test_edge_update_refuses_other_edge_dtypes(small_cfg):

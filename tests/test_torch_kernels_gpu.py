@@ -588,28 +588,63 @@ def test_edge_factor_gain_is_the_edge_update(cuda):
 
 def test_launch_counts_and_empty_batch(cuda):
     S = random_spd(4, 9, torch.float32, seed=2).to(cuda)
-    n_inv, n_tr = kernels.spd_inverse.launches, kernels.spd_trace_product_packed.launches
+    before = kernels.launch_counts()
     kernels.spd_inverse(S)
     kernels.spd_trace_product_packed(packed(S, 1, 4), packed(S, 1, 4))
-    assert kernels.spd_inverse.launches == n_inv + 1
-    assert kernels.spd_trace_product_packed.launches == n_tr + 1
+    assert kernels.launch_counts()["spd_inverse"] == before["spd_inverse"] + 1
+    assert kernels.launch_counts()["spd_trace_product"] == before["spd_trace_product"] + 1
     empty = kernels.spd_inverse(S[:0])
-    assert empty.shape == (0, 9, 9) and kernels.spd_inverse.launches == n_inv + 1
-    n_fac = kernels.spd_inverse_factor.launches
+    assert empty.shape == (0, 9, 9)
+    assert kernels.launch_counts()["spd_inverse"] == before["spd_inverse"] + 1
     kernels.spd_inverse_factor(S)
     inv, U = kernels.spd_inverse_factor(S[:0])
     assert inv.shape == U.shape == (0, 9, 9)
-    assert kernels.spd_inverse_factor.launches == n_fac + 1
+    assert kernels.launch_counts()["spd_inverse_factor"] == before["spd_inverse_factor"] + 1
     S_raw, A, R, a, mask = (t.to(cuda) for t in edge_inputs(4, 9, 100, torch.float32, seed=2))
-    n_edge = kernels.edge_factor_gain.launches
     kernels.edge_factor_gain(S_raw, A, R, a, mask)
     WcT, gain = kernels.edge_factor_gain(S_raw[:0], A[:0], R, a[:0], mask[:0])
     assert WcT.shape == (0, 9, 100) and gain.shape == (0,)
-    assert kernels.edge_factor_gain.launches == n_edge + 1
+    assert kernels.launch_counts()["edge_factor_gain"] == before["edge_factor_gain"] + 1
     kernels.reset_launch_counts()
-    assert (kernels.spd_inverse.launches, kernels.spd_inverse_factor.launches,
-            kernels.spd_trace_product_packed.launches, kernels.edge_factor_gain.launches) == (
-        0, 0, 0, 0)
+    assert kernels.launch_counts() == dict.fromkeys(kernels.KERNELS, 0)
+
+
+def test_span_holds_its_kernels_launch_on_the_profilers_clock(cuda):
+    """The tracer's spans and the profiler share a clock on the card: a
+    span around a sleep kernel (synchronised inside it) holds the kernel's
+    runtime launch event in its host interval and overlaps the kernel's
+    device interval, and its CUDA events time at least the sleep."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ipp_rl_tpu_torch.utils import tracing
+
+    torch.cuda._sleep(1000)  # the kernel's first launch outside the profile
+    torch.cuda.synchronize()
+    tracing.reset()
+    tracing.enable()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with tracing.span("probe") as span:
+                torch.cuda._sleep(20_000_000)  # ~10 ms
+                torch.cuda.synchronize()
+    finally:
+        tracing.disable()
+    tracing.snapshot()
+    tracing.reset()
+    events = list(prof.profiler.kineto_results.events())
+    device = [e for e in events if e.device_type() == DeviceType.CUDA]
+    # the sleep (torch's spin kernel) is the profile's only kernel of 5 ms or more
+    sleeps = [e for e in device if e.duration_ns() >= 5_000_000 and "ync" not in e.name()]
+    assert len(sleeps) == 1, [(e.name(), e.duration_ns()) for e in device]
+    kernel = sleeps[0]
+    k_start, k_end = kernel.start_ns(), kernel.start_ns() + kernel.duration_ns()
+    launch = [e for e in events if e.device_type() != DeviceType.CUDA
+              and e.correlation_id() == kernel.correlation_id()]
+    assert len(launch) == 1 and launch[0].name().startswith("cu")
+    assert span.start_ns <= launch[0].start_ns() <= span.end_ns
+    assert k_start < span.end_ns and k_end > span.start_ns
+    assert span.device_ms * 1e6 >= 0.99 * (k_end - k_start)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -1089,7 +1124,6 @@ def test_classic_sweep_and_edge_inputs_are_bitwise_plain(cuda, R):
         recorded.append((S, G))
         return launch(S, G)
 
-    record.launches = 0
     kernels.spd_trace_product_packed = record
     try:
         planner._sweep_rewards(state.cov, planner._costs(state.pos), dmask)
@@ -1188,7 +1222,6 @@ def test_deployed_batch_of_one_is_bitwise_plain(cuda, dtype):
         recorded.append((S, G))
         return launch(S, G)
 
-    record.launches = 0
     kernels.spd_trace_product_packed = record
     try:
         sweep_rewards(world, state)

@@ -92,13 +92,13 @@ def test_wrappers_take_plain_path_on_cpu():
     S = torch.from_numpy(random_spd(rng, 3, 9))
     G = torch.from_numpy(random_spd(rng, 3, 9))
     Sp, Gp = (smallchol.pack_lower(X).T.contiguous()[None] for X in (S, G))
-    before = (kernels.spd_inverse.launches, kernels.spd_trace_product_packed.launches)
+    before = kernels.launch_counts()
     assert torch.equal(kernels.spd_inverse(S), smallchol.spd_inverse(S))
     assert torch.equal(kernels.spd_trace_product_packed(Sp, Gp),
                        smallchol.spd_trace_product_packed(Sp, Gp))
     assert torch.equal(kernels.spd_trace_product_packed(Sp, Gp)[0],
                        smallchol.spd_trace_product(S, G))
-    assert (kernels.spd_inverse.launches, kernels.spd_trace_product_packed.launches) == before
+    assert kernels.launch_counts() == before
 
 
 def test_wrappers_reject_non_cuda_non_cpu_tensors():
@@ -130,9 +130,9 @@ def test_spd_inverse_factor_clamps_pivots():
     same inf and NaN entries); the plain wrapper path counts no launch."""
     rng = np.random.default_rng(7)
     S = indefinite(rng, 9, 9)
-    before = kernels.spd_inverse_factor.launches
+    before = kernels.launch_counts()
     inv, U = kernels.spd_inverse_factor(torch.from_numpy(S))
-    assert kernels.spd_inverse_factor.launches == before
+    assert kernels.launch_counts() == before
     want_inv = jax_smallchol.spd_inverse(jnp.asarray(S))
     want_U = np.asarray(jax_smallchol.spd_cholesky_dense(want_inv))
     assert np.all(np.isfinite(inv.numpy())) and not np.all(np.isfinite(U.numpy()))
