@@ -4,14 +4,17 @@ Port of ``ipp_rl_tpu/planners/base.py``.  The JAX package's ``lax.scan``
 over a static step bound becomes a Python loop with per-mission active
 masks: missions that exhaust their budget keep carrying state but stop
 measuring (mask-and-continue), so metric histories stay rectangular
-(B, T+1).  Histories stay on the device and move to the host once, at
-the end of the run.
+(B, T+1).  Once no mission can move, every later step is a no-op, and
+the loop leaves early where the skipped steps would draw nothing: the
+history is then padded on the host as those steps would have filled it.
+Histories stay on the device and move to the host once, at the end of
+the run.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -22,6 +25,10 @@ from ipp_rl_tpu_torch.ops.geometry import euclidean_distances, travel_costs
 from ipp_rl_tpu_torch.ops.kalman import kf_sweep_gains_batched
 from ipp_rl_tpu_torch.ops.rewards import adaptive_mask, reward_from_gain
 from ipp_rl_tpu_torch.utils.tracing import count, span
+
+#: steps between a step's "any mission still active" flag and its read on
+#: the host: the read waits on a step long done while the next is queued
+FLAG_LAG = 2
 
 
 def action_costs_from(world: IPPWorld, pos: torch.Tensor) -> torch.Tensor:
@@ -88,6 +95,8 @@ class Planner:
     lattice action per mission) or override ``run`` entirely."""
 
     name = "base"
+    #: whether ``plan`` draws from the generator when no ``draws`` are given
+    plan_draws = True
 
     def __init__(self, world: IPPWorld, mission_cfg: MissionConfig):
         self.world = world
@@ -125,15 +134,26 @@ class Planner:
         (reference planning/greedy_mission.py:105-106).  Draws come from
         ``generator`` (on the world's device; None uses torch's default),
         except the measurement noise when ``noise`` (T, B, M) is given and
-        the planner's own when ``draws`` (one entry per step) are."""
+        the planner's own when ``draws`` (one entry per step) are.
+
+        Once no mission is active every later step is a no-op.  Where those
+        steps would draw nothing (``noise`` given, and ``draws`` given or a
+        ``plan`` that draws nothing), the loop leaves when a step's flag,
+        read :data:`FLAG_LAG` steps later, shows no mission active, and the
+        history is padded to T steps: the result and the generator's state
+        are those of the whole loop."""
         world = self.world
         T = max_steps if max_steps is not None else self.max_steps()
         think = think_time_per_step if self.cfg.evaluation.use_effective_mission_time else 0.0
+        may_exit = noise is not None and (draws is not None or not self.plan_draws)
         with span("plan.run"):
             state = (init_state if init_state is not None
                      else world.init_state(batch_size, generator))
             history = MissionHistory(world, state)
+            flags = ActiveFlags(T, state.active.device) if may_exit and T > FLAG_LAG else None
             for t in range(T):
+                if flags is not None and t >= FLAG_LAG and not flags.read(t - FLAG_LAG):
+                    break
                 action = self.plan(state, generator, t, None if draws is None else draws[t])
                 cost = travel_costs(
                     world.actions_xyz[action], state.pos, self.cfg.uav.max_v, self.cfg.uav.max_a
@@ -142,12 +162,40 @@ class Planner:
                 # (reference planning/greedy_mission.py:79-96)
                 can_move = state.active & (cost <= state.budget) & (cost > 0)
                 state = state.replace(active=can_move)
+                if flags is not None:
+                    flags.record(t, can_move)
                 state = world.step_index(
                     state, action, None if noise is None else noise[t], generator
                 )
                 state = charge_think_time(state, can_move, think)
                 history.add(state, world.actions_xyz[action], can_move, cost)
-            return history.result(state)
+            ran = len(history.actives)
+            count("plan.steps", ran)
+            count("plan.steps_skipped", T - ran)
+            return history.result(state, steps=T)
+
+
+class ActiveFlags:
+    """Per step, whether any mission is still active, copied to the host
+    without a wait (pinned memory and a CUDA event on the card) and read
+    later; each read counts as one of ``host_syncs``."""
+
+    def __init__(self, steps: int, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.flags = torch.zeros(steps, dtype=torch.bool, pin_memory=self.cuda)
+        self.events: List[Optional[torch.cuda.Event]] = [None] * steps
+
+    def record(self, t: int, active: torch.Tensor) -> None:
+        self.flags[t].copy_(active.any(), non_blocking=self.cuda)
+        if self.cuda:
+            self.events[t] = torch.cuda.Event()
+            self.events[t].record()
+
+    def read(self, t: int) -> bool:
+        if self.events[t] is not None:
+            self.events[t].synchronize()
+        count("host_syncs")
+        return bool(self.flags[t])
 
 
 def charge_think_time(state: BeliefState, moved: torch.Tensor, think: float) -> BeliefState:
@@ -181,20 +229,37 @@ class MissionHistory:
         self.actives.append(moved)
         self.flight.append(torch.where(moved, cost, 0.0))
 
-    def result(self, final_state: BeliefState) -> MissionResult:
+    def result(self, final_state: BeliefState, steps: Optional[int] = None) -> MissionResult:
+        """The histories on the host; with ``steps`` past the steps recorded,
+        padded to ``steps`` as steps in which no mission moves fill them:
+        NaN waypoints, zero flight times, and budgets and metrics that
+        repeat their last column (``final_state`` is then the state after
+        ``steps`` steps as well)."""
+
         def host(xs, empty_shape):
             if not xs:
                 return np.zeros(empty_shape)
             count("host_syncs")
             return torch.stack(xs, dim=1).cpu().numpy()
 
+        def pad(a, fill=None):
+            if not skipped:
+                return a
+            width = [(0, 0)] * a.ndim
+            width[1] = (0, skipped)
+            if fill is None:
+                return np.pad(a, width, mode="edge")
+            return np.pad(a, width, constant_values=fill)
+
         B = self.B
+        skipped = 0 if steps is None else steps - len(self.actives)
         with span("plan.history"):
             return MissionResult(
-                waypoints=host(self.wps, (B, 0, 3)),
-                metrics={k: host([m[k] for m in self.metrics], None) for k in self.metrics[0]},
-                budgets=host(self.budgets, None),
+                waypoints=pad(host(self.wps, (B, 0, 3)), np.nan),
+                metrics={k: pad(host([m[k] for m in self.metrics], None))
+                         for k in self.metrics[0]},
+                budgets=pad(host(self.budgets, None)),
                 num_steps=host(self.actives, (B, 0)).sum(axis=1),
-                flight_times=host(self.flight, (B, 0)),
+                flight_times=pad(host(self.flight, (B, 0)), 0),
                 final_state=final_state,
             )

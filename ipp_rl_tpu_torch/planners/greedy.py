@@ -21,6 +21,7 @@ from ipp_rl_tpu_torch.utils.tracing import span
 
 class GreedyPlanner(Planner):
     name = "greedy"
+    plan_draws = False
 
     def plan(
         self, state: BeliefState, generator: Optional[torch.Generator], step: int,

@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels (ipp_rl_tpu_torch/csrc/smallchol.cu) on the
-card, against their plain PyTorch versions, and the greedy slice on the
-card against the same slice on the CPU.
+card, against their plain PyTorch versions, the greedy slice on the
+card against the same slice on the CPU, and greedy's mission loop that
+leaves once no mission can move against the whole loop.
 
 ``spd_trace_product`` is tested through its packed entry, the one the
 sweep calls, in both sweep layouts and against the full-block plain
@@ -970,6 +971,34 @@ def test_greedy_slice_on_card_matches_cpu(cuda):
     np.testing.assert_array_equal(got.waypoints, want.waypoints)
     for k, v in want.metrics.items():
         np.testing.assert_allclose(got.metrics[k], v, rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.parametrize("seed", [3, 4100000000123])
+def test_greedy_loop_exit_on_card_is_the_whole_loop(cuda, seed):
+    """The greedy benchmark cell's inputs (B = 4096, bf16-streamed sweeps):
+    ``Planner.run``, which leaves once no mission can move, gives the
+    whole T-step loop's result bitwise, in fewer than T steps."""
+    from benchmark import harness, inputs
+    from ipp_rl_tpu_torch.config import config_from_dict
+    from ipp_rl_tpu_torch.utils import tracing
+    from test_torch_loop_exit import assert_same_result, full_loop
+
+    config = harness.data_file("configs", "example")
+    world = IPPWorld(config_from_dict(config["config"]), fast_sweeps=True)
+    planner = GreedyPlanner(world, MissionConfig(type="greedy"))
+    B, T = 4096, planner.max_steps()
+    g = inputs.generator(seed, 0, cuda)
+    gt = inputs.fields(config, B, g, cuda)
+    noise = torch.randn((T, B, world.H.shape[1]), generator=g, device=cuda)
+    mean0, cov0 = inputs.prior(config, cuda)
+    budget = float(config["config"]["experiment"]["constraints"]["budget"])
+    state = inputs.belief_state(mean0, cov0, inputs.start_pos(config, cuda), budget, gt)
+    before = tracing.counts("plan.steps")
+    got = planner.run(B, init_state=state, noise=noise)
+    steps = tracing.counts("plan.steps")["plan.steps"] - before.get("plan.steps", 0)
+    want = full_loop(planner, state, T, noise=noise)
+    assert_same_result(got, want)
+    assert steps < T
 
 
 @pytest.fixture
