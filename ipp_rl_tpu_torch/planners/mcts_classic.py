@@ -14,7 +14,19 @@ counts (the JAX package computes the same).  So one replan launches, per
 simulation, Hc + H sweeps (``ops/kalman.kf_sweep_gains_batched``, full
 precision: the JAX planner's structured sweep takes no ``fast_math``) and
 Hc + H edge updates (``ops/kalman.kf_edge_factor_gain``, one
-``edge_factor_gain`` launch each), with Hc = horizon + 1.
+``edge_factor_gain`` launch each), with Hc = horizon + 1.  The counter
+``classic.lockstep_steps`` counts those steps (S·(Hc + H) a search) on
+the host.
+
+A lockstep step is some 150 launches, most of them small, and no
+read-back: on a card the Python loop leaves gaps between them that vary
+with the host's speed.  With injected draws on a CUDA device (and
+``use_graphs``, the default) one simulation is captured once as a CUDA
+graph (``_SimGraph``) and replayed S times a search, each replay after
+the simulation's draws are copied into the graph's own inputs: the same
+launches, on the same shapes, in the same order, so the same trees bit
+for bit.  The tree a search returns is then the graph's own, valid until
+the next search.  Draws from a generator, and the CPU, take the loop.
 
 The reference's quirks that the JAX package keeps are kept here, each
 marked with the JAX line it follows (``mcts_classic.py:<line>``).
@@ -42,7 +54,8 @@ from ipp_rl_tpu_torch.ops.kalman import kf_edge_factor_gain, kf_sweep_gains_batc
 from ipp_rl_tpu_torch.ops.rewards import adaptive_mask, reward_from_gain
 from ipp_rl_tpu_torch.planners.base import Planner
 from ipp_rl_tpu_torch.planners.zero.mcts import rand_argmax
-from ipp_rl_tpu_torch.utils.tracing import span
+from ipp_rl_tpu_torch.utils import tracing
+from ipp_rl_tpu_torch.utils.tracing import count, span
 
 NO_NODE = -1
 
@@ -110,6 +123,8 @@ class ClassicMCTSPlanner(Planner):
         self.max_greedy_radius = mc.horizontal_spacing
         self.use_gcb = mc.use_gcb_rollout
         self.max_children = min(world.num_actions, self.num_simulations + 1)
+        self.use_graphs = True
+        self._graph: Optional[_SimGraph] = None
 
     # ------------------------------------------------------------ helpers
 
@@ -180,6 +195,11 @@ class ClassicMCTSPlanner(Planner):
         """UCT over the existing children of ``node`` (R,), already wrapped
         into [0, C), with the flight costs (R, A) from the node's position;
         returns the chosen child SLOT (mcts_classic.py:164-208)."""
+        return rand_argmax(self._uct_scores(tree, node, costs, budget), noise)
+
+    def _uct_scores(self, tree: CTree, node: torch.Tensor, costs, budget) -> torch.Tensor:
+        """(R, Cmax) UCT scores of the child slots of ``node``: −inf at an
+        empty or unaffordable slot, +inf at an unvisited child."""
         b = torch.arange(node.shape[0], device=node.device)
         Cmax = self.max_children
         cids = tree.children[b, node]  # (R, Cmax)
@@ -209,8 +229,7 @@ class ClassicMCTSPlanner(Planner):
         uct = torch.where(child_visits == 0, inf, norm + explore)
         cost = costs.gather(1, torch.clamp(tree.action_in.gather(1, cidx), min=0))
         uct = torch.where((cost == 0) | (cost >= budget[:, None]), -inf, uct)
-        uct = torch.where(exists, uct, -inf)
-        return rand_argmax(uct, noise)
+        return torch.where(exists, uct, -inf)
 
     # ----------------------------------------------------------- search
 
@@ -219,22 +238,31 @@ class ClassicMCTSPlanner(Planner):
         dt, dev = budget.dtype, budget.device
         m, n = self.world.H.shape[1], self.cfg.environment.num_cells
 
-        def full(shape, value, dtype):
-            return torch.full(shape, value, dtype=dtype, device=dev)
+        def empty(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device=dev)
 
         tree = CTree(
-            parent=full((R, C), NO_NODE, torch.long),
-            action_in=full((R, C), NO_NODE, torch.long),
-            wc_in=full((R, C, m, n), 0, dt),
-            budget=full((R, C), 0, dt),
-            visits=full((R, C), 0, dt),
-            value_sum=full((R, C), 0, dt),
-            num_children=full((R, C), 0, torch.long),
-            children=full((R, C, self.max_children), NO_NODE, torch.long),
-            next_free=full((R,), 1, torch.long),
+            parent=empty((R, C), torch.long),
+            action_in=empty((R, C), torch.long),
+            wc_in=empty((R, C, m, n), dt),
+            budget=empty((R, C), dt),
+            visits=empty((R, C), dt),
+            value_sum=empty((R, C), dt),
+            num_children=empty((R, C), torch.long),
+            children=empty((R, C, self.max_children), torch.long),
+            next_free=empty((R,), torch.long),
         )
-        tree.budget[:, 0] = budget
+        self._reset_tree(tree, budget)
         return tree
+
+    @staticmethod
+    def _reset_tree(tree: CTree, budget: torch.Tensor) -> None:
+        """Every node empty but the roots, at ``budget``."""
+        for field in dataclasses.fields(tree):
+            empty = NO_NODE if field.name in ("parent", "action_in", "children") else 0
+            getattr(tree, field.name).fill_(empty)
+        tree.next_free.fill_(1)
+        tree.budget[:, 0] = budget
 
     def _descend(self, tree: CTree, P_root, root_pos, mean, i, draws, generator):
         """The Hc lockstep descent steps of simulation ``i``
@@ -253,6 +281,7 @@ class ClassicMCTSPlanner(Planner):
         path_rewards = torch.zeros((R, Hc), dtype=dt, device=dev)
         path_len = torch.zeros((R,), dtype=torch.long, device=dev)
         for j in range(Hc):
+            count("classic.lockstep_steps")
             if draws is not None:
                 g_sel, g_exp, u_exp = draws.select[i, j], draws.expand[i, j], draws.expand_u[i, j]
             else:
@@ -329,6 +358,7 @@ class ClassicMCTSPlanner(Planner):
         disc = torch.ones((), dtype=dt, device=dev)
         alive = torch.ones((R,), dtype=torch.bool, device=dev)
         for k in range(self.horizon):
+            count("classic.lockstep_steps")
             g_soft = None
             if draws is not None:
                 g_rand, u_mode = draws.rollout[i, k], draws.rollout_u[i, k]
@@ -413,19 +443,30 @@ class ClassicMCTSPlanner(Planner):
 
         with span("classic.search"):
             P_root, pos, mean = rows(state.cov), rows(state.pos), rows(state.mean)
-            tree = self._init_tree(P_root.shape[0], rows(state.budget))
-            for i in range(self.num_simulations):
-                with span("classic.descent"):
-                    P, leaf_pos, budget, rollout_node, path_nodes, path_rewards, path_len = (
-                        self._descend(tree, P_root, pos, mean, i, draws, generator))
-                with span("classic.rollout"):
-                    G = self._rollout(P, leaf_pos, budget, mean, i, draws, generator)
-                rollout_value = torch.where(rollout_node >= 0, G, 0.0)  # (:315-319)
-                with span("classic.backup"):
-                    self._backup(tree, rollout_node, rollout_value, path_nodes, path_rewards,
-                                 path_len)
+            budget = rows(state.budget)
+            if self.use_graphs and draws is not None and P_root.is_cuda:
+                g = self._graph
+                if g is None or not g.fits(P_root, draws):
+                    self._graph = None  # free the old graph's pool first
+                    g = self._graph = _SimGraph(self, P_root, pos, mean, budget, draws)
+                tree = g.search(P_root, pos, mean, budget, draws)
+            else:
+                tree = self._init_tree(P_root.shape[0], budget)
+                for i in range(self.num_simulations):
+                    self._simulate(tree, P_root, pos, mean, i, draws, generator)
             with span("classic.backup"):
                 return tree, self.root_stats(tree)
+
+    def _simulate(self, tree: CTree, P_root, pos, mean, i, draws, generator) -> None:
+        """Simulation ``i`` on every row: descent, rollout, backup."""
+        with span("classic.descent"):
+            P, leaf_pos, budget, rollout_node, path_nodes, path_rewards, path_len = (
+                self._descend(tree, P_root, pos, mean, i, draws, generator))
+        with span("classic.rollout"):
+            G = self._rollout(P, leaf_pos, budget, mean, i, draws, generator)
+        rollout_value = torch.where(rollout_node >= 0, G, 0.0)  # (:315-319)
+        with span("classic.backup"):
+            self._backup(tree, rollout_node, rollout_value, path_nodes, path_rewards, path_len)
 
     def plan(self, state: BeliefState, generator: Optional[torch.Generator], step: int,
              draws: Optional[ClassicDraws] = None) -> torch.Tensor:
@@ -439,3 +480,59 @@ class ClassicMCTSPlanner(Planner):
         val = root.values.view(B, self.num_workers, A).sum(dim=1)
         mean_val = val / torch.clamp(vis, min=1e-30)
         return torch.argmax(torch.where(vis > 0, mean_val, float("-inf")), dim=-1)
+
+
+class _SimGraph:
+    """One simulation of ``ClassicMCTSPlanner`` over R rows captured as a
+    CUDA graph, with the tree, the root's belief and one simulation's draws
+    as its own inputs (``search`` fills them, then replays the graph once a
+    simulation).  The capture counts nothing and records no span; each
+    replay adds to the counters what the capture's Python counted
+    (``classic.lockstep_steps``, the kernels' launches)."""
+
+    _DRAWS = tuple(f.name for f in dataclasses.fields(ClassicDraws))
+
+    def __init__(self, planner: ClassicMCTSPlanner, P_root, pos, mean, budget,
+                 draws: ClassicDraws):
+        self.planner = planner
+        self.P_root, self.pos, self.mean = P_root.clone(), pos.clone(), mean.clone()
+        self.tree = planner._init_tree(P_root.shape[0], budget)
+        self.draws = ClassicDraws(**{
+            k: None if getattr(draws, k) is None else getattr(draws, k)[:1].clone()
+            for k in self._DRAWS})
+        self.key = self._key(P_root, draws)
+        side = torch.cuda.Stream(P_root.device)
+        side.wait_stream(torch.cuda.current_stream(P_root.device))
+        with tracing.suspended(), torch.cuda.stream(side):
+            self._body()  # loads what the launches load, off the capture
+        torch.cuda.current_stream(P_root.device).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with tracing.suspended() as self.counted, torch.cuda.graph(self.graph):
+            self._body()
+
+    @classmethod
+    def _key(cls, P_root, draws: ClassicDraws):
+        shapes = tuple(None if getattr(draws, k) is None else tuple(getattr(draws, k).shape[1:])
+                       for k in cls._DRAWS)
+        return tuple(P_root.shape), P_root.dtype, P_root.device, shapes
+
+    def fits(self, P_root, draws: ClassicDraws) -> bool:
+        return self._key(P_root, draws) == self.key
+
+    def _body(self) -> None:
+        self.planner._simulate(self.tree, self.P_root, self.pos, self.mean, 0, self.draws, None)
+
+    def search(self, P_root, pos, mean, budget, draws: ClassicDraws) -> CTree:
+        self.P_root.copy_(P_root)
+        self.pos.copy_(pos)
+        self.mean.copy_(mean)
+        self.planner._reset_tree(self.tree, budget)
+        for i in range(self.planner.num_simulations):
+            for k in self._DRAWS:
+                if getattr(draws, k) is not None:
+                    getattr(self.draws, k)[0].copy_(getattr(draws, k)[i])
+            with span("classic.simulation"):
+                self.graph.replay()
+            for name, n in self.counted.items():
+                count(name, n)
+        return self.tree

@@ -139,6 +139,25 @@ def disable() -> None:
     _on = False
 
 
+@contextlib.contextmanager
+def suspended():
+    """Within the block no span is recorded and the counters stay as they
+    were: a CUDA graph's capture, whose Python runs once for every replay
+    to come.  Yields a dict that, at exit, holds what was counted inside."""
+    global _on
+    on, before = _on, dict(_counters)
+    inside: Dict[str, int] = {}
+    _on = False
+    try:
+        yield inside
+    finally:
+        _on = on
+        inside.update({k: v - before.get(k, 0) for k, v in _counters.items()
+                       if v != before.get(k, 0)})
+        _counters.clear()
+        _counters.update(before)
+
+
 def reset(counters: Optional[str] = None) -> None:
     """Forget the recorded spans and every counter; with ``counters`` a
     prefix, forget only the counters whose names start with it."""

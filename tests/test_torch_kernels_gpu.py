@@ -1225,6 +1225,60 @@ def test_classic_search_on_card_matches_cpu(cuda):
     assert torch.equal(got_stats.best_child_action.cpu(), want_stats.best_child_action)
 
 
+def test_classic_cell_search_on_card_graph_equal_eager_and_plain(cuda):
+    """The classic benchmark cell's search at its R = 1024 rows (its
+    configuration, its inputs and uniform draws from a seed, 4 of its
+    simulations): the CUDA graph's replays, the Python loop through the
+    kernels, and the loop through their plain versions build the same
+    trees, bitwise, for two sets of draws in turn (the graph's inputs are
+    refilled), with S·(Hc + H) lockstep steps counted a search."""
+    from benchmark import harness, inputs
+    from ipp_rl_tpu_torch.config import config_from_dict
+    from ipp_rl_tpu_torch.planners.mcts_classic import ClassicDraws, ClassicMCTSPlanner
+    from ipp_rl_tpu_torch.utils import tracing
+
+    config = harness.data_file("configs", "example_classic")
+    world = IPPWorld(config_from_dict(config["config"]), fast_sweeps=config["fast_sweeps"])
+    mission = next(m for m in world.cfg.missions if m.type == "mcts")
+    planner = ClassicMCTSPlanner(world, dataclasses.replace(mission, num_simulations=4))
+    B, S, H = 1024, planner.num_simulations, planner.horizon
+    A, K = world.num_actions, planner.max_children
+    g = inputs.generator(18, 0, cuda)
+    mean0, cov0 = inputs.prior(config, cuda)
+    state = inputs.belief_state(mean0, cov0, inputs.start_pos(config, cuda), 200.0,
+                                inputs.fields(config, B, g, cuda))
+    state = state.replace(budget=50.0 + 150.0 * torch.rand((B,), generator=g, device=cuda))
+
+    def u(*shape):
+        return torch.rand(shape, generator=g, device=cuda)
+
+    def search(draws, graphs):
+        planner.use_graphs = graphs
+        before = tracing.counts("classic.").get("classic.lockstep_steps", 0)
+        tree = planner.search(state, draws=draws)[0]
+        assert tracing.counts("classic.")["classic.lockstep_steps"] - before == S * (2 * H + 1)
+        return {f: getattr(tree, f).clone() for f in CLASSIC_TREE}
+
+    for _ in range(2):
+        draws = ClassicDraws(select=u(S, H + 1, B, K), expand=u(S, H + 1, B, A),
+                             expand_u=u(S, H + 1, B), rollout=u(S, H, B, A),
+                             rollout_u=u(S, H, B))
+        graphed, eager = search(draws, True), search(draws, False)
+        saved = {k: getattr(kernels, k) for k in ("spd_inverse", "spd_trace_product_packed",
+                                                  "edge_factor_gain")}
+        try:
+            for k in saved:
+                setattr(kernels, k, getattr(smallchol, k))
+            plain = search(draws, False)
+        finally:
+            for k, fn in saved.items():
+                setattr(kernels, k, fn)
+        for f in CLASSIC_TREE:
+            assert torch.equal(graphed[f], eager[f]), f
+            assert torch.equal(eager[f], plain[f]), f
+        assert bool((graphed["visits"][:, 0] == S).all())
+
+
 def _committed_state(world, B, seed, steps=3):
     gen = torch.Generator(device=world.device).manual_seed(seed)
     state = world.init_state(B, gen)

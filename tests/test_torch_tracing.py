@@ -125,6 +125,23 @@ def test_counters_count_on_and_off():
     assert tracing.counts() == {"host_syncs": 5}
 
 
+def test_suspended_records_no_span_and_leaves_the_counters():
+    """Inside ``suspended`` (a CUDA graph's capture) no span is recorded and
+    the counters end as they began; what was counted inside is given back."""
+    tracing.enable()
+    tracing.count("host_syncs", 2)
+    with tracing.suspended() as inside:
+        with tracing.span("classic.descent"):
+            tracing.count("classic.lockstep_steps", 6)
+            tracing.count("host_syncs")
+    assert inside == {"classic.lockstep_steps": 6, "host_syncs": 1}
+    snap = tracing.snapshot()
+    assert snap.spans == [] and snap.counters == {"host_syncs": 2}
+    with tracing.span("classic.search"):
+        pass
+    assert [s.name for s in tracing.snapshot().spans] == ["classic.search"]
+
+
 def test_launch_counts_are_views_of_the_counters():
     kernels.reset_launch_counts()
     assert kernels.launch_counts() == dict.fromkeys(kernels.KERNELS, 0)
