@@ -35,7 +35,14 @@ Phases, each of which fails the run on a failed check (none is caught):
    ``spd_inverse_factor``) timed beside it; at the training path's batches,
    ``edge_factor_gain`` at B = ``TRAIN_ENVS`` (self-play) and
    ``ARENA_GAMES`` (arena) and ``spd_inverse`` on a commit's S at B =
-   ``TRAIN_ENVS``;
+   ``TRAIN_ENVS``; ``sweep_tap_blocks`` (the sweep's dense group from H's
+   taps, ``csrc/sweep_taps.cu``) at the greedy cell's B = 4096 with bf16
+   streams, classic's R = 1024 and CMA-ES's init at B = 8192 in float32,
+   timed beside its bound, its plain version and the two-stage contraction
+   it replaces (``library_ms``); the calls of that contraction (the
+   counter ``sweep.dense_two_stage``) are read beside the launch counters
+   and must be 0 on the three configurations' paths (phases 3, 9, 10) and
+   one a step on the 1 m grid's (phase 16);
 3. the greedy slice through its entry points: canonical
    ``ipp_rl_tpu_torch/config/example.yaml``, ``IPPWorld(cfg, fast_sweeps=True)``,
    ``GreedyPlanner.run`` with B = 4096 for 10 replan steps, with the launch
@@ -637,7 +644,7 @@ def kernel_phase(gen: torch.Generator) -> list:
     A, B = ACTIONS_PER_GROUP, REPLAN_B
     n = 2 * A * B
     S_full, G_full = random_spd(n, gen), random_spd(n, gen)
-    layouts = {  # name: (outer, inner), as ops/kalman.py builds them
+    layouts = {  # name: (outer, inner): the two-stage route's and the gather and taps groups'
         "dense (100, 45, 4096)": (A, B),
         "gather (4096, 45, 100)": (B, A),
     }
@@ -708,6 +715,8 @@ def kernel_phase(gen: torch.Generator) -> list:
             r["classic_checks"] = classic[r["name"]]
         if r["name"] in deploy:
             r["deploy_checks"] = deploy[r["name"]]
+    rows.append(sweep_taps_row(gen))
+    rows[-1]["deploy_checks"] = deploy["sweep_tap_blocks"]
     log(f"  spd_inverse on 32 matrices (one CTA): {rows[0]['one_cta_ms']:.4f} ms device")
     for r in rows:
         log(f"  {r['name']}: kernel {r['ms']:.4f} ms device (graph), {r['call_ms']:.4f} ms "
@@ -719,6 +728,85 @@ def kernel_phase(gen: torch.Generator) -> list:
         log(f"    spd_trace_product {name}: {v['ms']:.4f} ms device, "
             f"{v['call_ms']:.4f} ms per call, plain {v['plain_ms']:.3f} ms")
     return rows
+
+
+#: the sweep's dense group at each path's batch: name: (B, bf16 streams)
+TAPS_SHAPES = {"greedy": (REPLAN_B, True), "classic": (1024, False), "cmaes_init": (8192, False)}
+
+
+def sweep_taps_row(gen: torch.Generator) -> dict:
+    """``sweep_tap_blocks`` at the three paths' batches on example.yaml's
+    dense group (Ag = 100, Mg = 9, N = 100, KT = 4), float32 beliefs after
+    three commits: bitwise its plain version; device, call and host ms, the
+    plain version's and the two-stage contraction's (its blocks alone, the
+    route the kernel replaced) ms; the bound from the bytes read and
+    written once (P, Q, S, G and the tables) and the entries' operations."""
+    from ipp_rl_tpu_torch.ops import kalman
+    from ipp_rl_tpu_torch.ops.sensor_model import build_sweep_plan
+
+    log("== sweep_tap_blocks: the sweep's dense group from H's taps")
+    cfg = load_config(str(CONFIG_DIR / "example.yaml"))
+    world = IPPWorld(cfg)
+    (g,) = [g for g in world.sweep_batched["groups"] if g["kind"] == "taps"]
+    plan = build_sweep_plan(world.table, x_dim=cfg.environment.x_dim, y_dim=cfg.environment.y_dim)
+    fits, kernels.sweep_taps_fit = kernels.sweep_taps_fit, lambda *args: False
+    try:
+        (dense,) = [d for d in kalman.prepare_batched_sweep(plan, torch.float32)["groups"]
+                    if d["kind"] == "dense"]
+    finally:
+        kernels.sweep_taps_fit = fits
+    Mg, KT, Ag = g["cells"].shape
+    t_entries = smallchol.packed_size(Mg)
+    N = world.H.shape[-1]
+    tables = sum(g[k].numel() * g[k].element_size() for k in ("cells", "weights", "diag"))
+    shapes = {}
+    max_err = 0.0
+    for name, (B, fast) in TAPS_SHAPES.items():
+        state = world.init_state(B, gen)
+        for _ in range(3):
+            a = torch.randint(0, world.num_actions, (B,), generator=gen, device="cuda")
+            state = world.step_index(state, a, generator=gen)
+        P = state.cov
+        mask = adaptive_mask(state.mean, torch.diagonal(P, dim1=-2, dim2=-1), 0.4, 0.0)
+        stream = torch.bfloat16 if fast else torch.float32
+        Q = torch.matmul((P * mask[:, None, :]).to(stream), P.to(stream))
+        args = (P, Q, g["cells"], g["weights"], g["diag"], 0.0, fast)
+        got, want = kernels.sweep_tap_blocks(*args), smallchol.sweep_tap_blocks(*args)
+        for part, x, y in zip("SG", got, want):
+            max_err = max(max_err, compare(f"sweep_tap_blocks {name} B={B} {part}", x, y)
+                          ["max_abs_err"])
+        nbytes = (P.numel() * P.element_size() + Q.numel() * Q.element_size()
+                  + 2 * B * t_entries * Ag * 4 + tables)
+        ops = 2 * B * (t_entries * Ag * (2 * KT * KT + 2 * KT) + 2 * N * N) + B * t_entries * Ag
+        b_ms, b_by = bound(nbytes, ops)
+        shapes[name] = {
+            "shape": [B, N, N], "stream": str(stream).removeprefix("torch."),
+            **times(lambda: kernels.sweep_tap_blocks(*args), graph_launches=20, calls=20),
+            "plain_ms": cuda_ms(lambda: smallchol.sweep_tap_blocks(*args), 3, warmup=1),
+            "library_ms": cuda_ms(lambda: kalman._two_stage_blocks(
+                P, Q, dense, 0.0, stream, torch.float32), 5, warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": nbytes,
+        }
+        v = shapes[name]
+        log(f"  sweep_tap_blocks {name} (B = {B}, {v['stream']} streams): kernel {v['ms']:.4f} ms "
+            f"device, {v['call_ms']:.4f} per call, host {v['host_ms']:.4f}; plain "
+            f"{v['plain_ms']:.3f}, two-stage {v['library_ms']:.3f} ms; bound {b_ms:.4f} ms "
+            f"({b_by}, {nbytes / 1e6:.1f} MB), {b_ms / v['ms']:.0%} of it")
+        del state, P, Q, got, want
+    head = shapes["greedy"]
+    return {
+        "name": "sweep_tap_blocks", "route": "cuda",
+        "source": "ipp_rl_tpu_torch/csrc/sweep_taps.cu",
+        "replaces": "ipp_rl_tpu/ops/kalman.py:429",
+        "shape": head["shape"], "dtype": "float32", "max_abs_err": max_err,
+        "max_rel_err": 0.0, "shapes": shapes,
+        **{k: head[k] for k in ("ms", "call_ms", "host_ms", "plain_ms", "library_ms",
+                                "bound_ms", "bound_by", "bound_bytes")},
+        "library_call": "ops/kalman._two_stage_blocks (the two-stage contraction's S and G)",
+        "m_range": f"N^2 values of the accumulation dtype <= {kernels.TAPS_SHARED_BYTES} B, "
+                   f"KT <= {kernels.TAPS_MAX}",
+        "m25": None, "m81_m121": None,
+    }
 
 
 def inverse_factor_row(gen: torch.Generator) -> dict:
@@ -992,21 +1080,38 @@ def deploy_shape_checks(gen: torch.Generator) -> dict:
     """The kernels at the deployment and multi-device paths' shapes, bitwise
     against their plain versions.  One mission (B = 1, the deployed loop's
     replans and commits, a GP-prior belief after three commits): each
-    ``spd_trace_product`` launch of a greedy sweep ((1, 45, 100) gather and
-    (100, 45, 1) dense), ``spd_inverse`` on a commit's S, ``edge_factor_gain``
+    ``spd_trace_product`` launch of a greedy sweep (the gather and taps
+    groups' (1, 45, 100)), that sweep's ``sweep_tap_blocks`` launch,
+    ``spd_inverse`` on a commit's S, ``edge_factor_gain``
     on a zero replan's edge inputs with the adaptive mask.  ``spd_inverse``
     on the large-grid sweep's (A/d, 9, 9) innovations at d = 1 (A = 800 and
     A = 4608) and on the sharded commit's one (9, 9), float32 and float64."""
-    errs = {"spd_inverse": [], "spd_trace_product": [], "edge_factor_gain": []}
+    errs = {"spd_inverse": [], "spd_trace_product": [], "edge_factor_gain": [],
+            "sweep_tap_blocks": []}
     world = IPPWorld(load_config(str(CONFIG_DIR / "example.yaml")))
     state = world.init_state(1, gen)
     for _ in range(3):
         step = torch.randint(0, world.num_actions, (1,), generator=gen, device="cuda")
         state = world.step_index(state, step, generator=gen)
-    recorded = record_trace_products(sweep_rewards, world, state)
+    taps, launch_taps = [], kernels.sweep_tap_blocks
+
+    def keep_taps(*args, **kw):
+        taps.append((args, kw))
+        return launch_taps(*args, **kw)
+
+    kernels.sweep_tap_blocks = keep_taps
+    try:
+        recorded = record_trace_products(sweep_rewards, world, state)
+    finally:
+        kernels.sweep_tap_blocks = launch_taps
     shapes = sorted(tuple(Sp.shape) for Sp, _ in recorded)
-    check(shapes == [(1, T, ACTIONS_PER_GROUP), (ACTIONS_PER_GROUP, T, 1)],
+    check(shapes == [(1, T, ACTIONS_PER_GROUP)] * 2,
           f"the B = 1 sweep's trace-product launches have shapes {shapes}")
+    check(len(taps) == 1, f"the B = 1 sweep launched sweep_tap_blocks {len(taps)} times")
+    args, kw = taps[0]
+    for got, want, part in zip(kernels.sweep_tap_blocks(*args, **kw),
+                               smallchol.sweep_tap_blocks(*args, **kw), "SG"):
+        errs["sweep_tap_blocks"].append(compare(f"sweep_tap_blocks B=1 ({part})", got, want))
     for Sp, Gp in recorded:
         errs["spd_trace_product"].append(compare(
             f"spd_trace_product B=1 {tuple(Sp.shape)}", kernels.spd_trace_product_packed(Sp, Gp),
@@ -1465,7 +1570,7 @@ def cta_m_rows(gen: torch.Generator) -> dict:
 # ------------------------------------------------------------ greedy slice
 
 KERNEL_WRAPPERS = ("spd_inverse", "spd_inverse_factor", "spd_trace_product_packed",
-                   "edge_factor_gain")
+                   "edge_factor_gain", "sweep_tap_blocks")
 
 
 @contextlib.contextmanager
@@ -1483,6 +1588,15 @@ def plain_versions():
             setattr(kernels, attr, fn)
 
 
+#: the counter of the sweep's two-stage contraction (ops/kalman._dense_group_gains)
+TWO_STAGE = "sweep.dense_two_stage"
+
+
+def two_stage_calls() -> int:
+    """The sweep's two-stage contraction's calls since the counter's reset."""
+    return tracing.counts(TWO_STAGE).get(TWO_STAGE, 0)
+
+
 def greedy_phase(cfg) -> dict:
     log(f"== greedy slice: example.yaml, fast_sweeps, B={REPLAN_B}, {REPLAN_STEPS} steps")
     world = IPPWorld(cfg, fast_sweeps=True)
@@ -1493,14 +1607,17 @@ def greedy_phase(cfg) -> dict:
     torch.cuda.reset_peak_memory_stats()
 
     kernels.reset_launch_counts()
+    tracing.reset(counters=TWO_STAGE)
     t0 = time.perf_counter()
     res = planner.run(REPLAN_B, max_steps=REPLAN_STEPS, generator=gen)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = kernels.launch_counts()
-    log(f"  launches in the run: {launches}")
+    launches, two_stage = kernels.launch_counts(), two_stage_calls()
+    log(f"  launches in the run: {launches}; two-stage sweeps {two_stage}")
     for name in ("spd_inverse", "spd_trace_product"):
         check(launches[name] > 0, f"{name} was not launched on the greedy path")
+    check(launches["sweep_tap_blocks"] == REPLAN_STEPS and two_stage == 0,
+          "the greedy sweeps did not take the tap kernel once a step")
 
     unc = res.metrics["uncertainty"]
     check(unc.shape == (REPLAN_B, REPLAN_STEPS + 1), f"uncertainty shape {unc.shape}")
@@ -1525,7 +1642,7 @@ def greedy_phase(cfg) -> dict:
         "plan_ms": plan_ms, "commit_ms": commit_ms,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "mean_uncertainty": mean_unc.tolist(),
-        "launches": launches,
+        "launches": launches, "two_stage_calls": two_stage,
     }
     log(f"  run: {out['ms_per_step']:.3f} ms/step, {out['replans_per_s']:.1f} replans/s; "
         f"plan {plan_ms:.3f} ms, commit {commit_ms:.3f} ms; "
@@ -2233,17 +2350,20 @@ def cmaes_phase(tcfg) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
+    tracing.reset(counters=TWO_STAGE)
     t0 = time.perf_counter()
     res = planner.run(CMAES_B, max_steps=CMAES_STEPS, generator=gen)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = kernels.launch_counts()
+    launches, two_stage = kernels.launch_counts(), two_stage_calls()
     peak = torch.cuda.max_memory_allocated() / 1e9
     want = {"edge_factor_gain": CMAES_STEPS * (G * H + H),
             "spd_trace_product": CMAES_STEPS * H * 2,
-            "spd_inverse": CMAES_STEPS * (H + 1), "spd_inverse_factor": 0}
-    log(f"  launches in the run: {launches} (want {want})")
+            "spd_inverse": CMAES_STEPS * (H + 1), "spd_inverse_factor": 0,
+            "sweep_tap_blocks": CMAES_STEPS * H}
+    log(f"  launches in the run: {launches} (want {want}); two-stage sweeps {two_stage}")
     check(launches == want, "CMA-ES launch counts differ from the stated ones")
+    check(two_stage == 0, "the CMA-ES init's sweeps took the two-stage route")
     unc = res.metrics["uncertainty"].mean(axis=0)
     check(res.waypoints.shape == (CMAES_B, CMAES_STEPS, 3), f"waypoints {res.waypoints.shape}")
     for k in ("rmse", "mll", "uncertainty", "uncertainty_difference"):
@@ -2410,19 +2530,23 @@ def classic_phase(cfg) -> dict:
     torch.cuda.reset_peak_memory_stats()
     with classic_split(planner) as split:
         kernels.reset_launch_counts()
+        tracing.reset(counters=TWO_STAGE)
         t0 = time.perf_counter()
         res = planner.run(CLASSIC_B, max_steps=CLASSIC_STEPS, generator=gen)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = kernels.launch_counts()
+        launches, two_stage = kernels.launch_counts(), two_stage_calls()
     peak = torch.cuda.max_memory_allocated() / 1e9
     per_replan = S * steps_per_sim
     want = {"spd_inverse": CLASSIC_STEPS, "spd_inverse_factor": 0,
             "spd_trace_product": 2 * CLASSIC_STEPS * per_replan,
-            "edge_factor_gain": CLASSIC_STEPS * per_replan}
+            "edge_factor_gain": CLASSIC_STEPS * per_replan,
+            "sweep_tap_blocks": CLASSIC_STEPS * per_replan}
     log(f"  launches in the run: {launches} (want {want}: per replan S (Hc + H) = {per_replan} "
-        f"edge updates, two trace-product launches per sweep, one commit)")
+        f"edge updates, two trace-product launches and one tap launch per sweep, one commit); "
+        f"two-stage sweeps {two_stage}")
     check(launches == want, "classic launch counts differ from the stated ones")
+    check(two_stage == 0, "the classic sweeps took the two-stage route")
     check(len(rec.root_visits) == CLASSIC_STEPS, f"{len(rec.root_visits)} searches")
     root = torch.stack(rec.root_visits)
     log(f"  root visits: min {root.min().item():g}, max {root.max().item():g} (want {S} for every "
@@ -2462,7 +2586,8 @@ def classic_phase(cfg) -> dict:
     wall4 = time.perf_counter() - t0
     launches4 = kernels.launch_counts()
     want4 = {"spd_inverse": 1, "spd_inverse_factor": 0,
-             "spd_trace_product": 2 * S4 * steps_per_sim, "edge_factor_gain": S4 * steps_per_sim}
+             "spd_trace_product": 2 * S4 * steps_per_sim, "edge_factor_gain": S4 * steps_per_sim,
+             "sweep_tap_blocks": S4 * steps_per_sim}
     log(f"== classic MCTS root-parallel: W = {W}, {S4} simulations per worker, B={B4} "
         f"(R = {B4 * W} rows), 1 replan step; launches {launches4} (want {want4})")
     check(launches4 == want4, "root-parallel launch counts differ from the stated ones")
@@ -3181,16 +3306,19 @@ def fine_1m_greedy(world) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
+    tracing.reset(counters=TWO_STAGE)
     t0 = time.perf_counter()
     res = planner.run(FINE_1M_B, max_steps=FINE_1M_STEPS, generator=gen)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = kernels.launch_counts()
+    launches, two_stage = kernels.launch_counts(), two_stage_calls()
     peak = torch.cuda.max_memory_allocated() / 1e9
     want = {"spd_inverse": FINE_1M_STEPS, "spd_inverse_factor": 0,
-            "spd_trace_product": 2 * FINE_1M_STEPS, "edge_factor_gain": 0}
-    log(f"  (a) launches in the run: {launches} (want {want})")
+            "spd_trace_product": 2 * FINE_1M_STEPS, "edge_factor_gain": 0,
+            "sweep_tap_blocks": 0}
+    log(f"  (a) launches in the run: {launches} (want {want}); two-stage sweeps {two_stage}")
     check(launches == want, "the 1 m greedy launch counts differ from the stated ones")
+    check(two_stage == FINE_1M_STEPS, "the 1 m sweeps did not take the two-stage route")
     for k in ("rmse", "mll", "uncertainty", "uncertainty_difference"):
         check(bool(np.isfinite(res.metrics[k]).all()), f"1 m greedy: metric {k} not finite")
     unc = res.metrics["uncertainty"].mean(axis=0)
@@ -3246,7 +3374,7 @@ def fine_1m_cmaes() -> dict:
         kernels.edge_factor_gain = launch
     peak = torch.cuda.max_memory_allocated() / 1e9
     want = {"edge_factor_gain": G * H + H, "spd_trace_product": H * 2, "spd_inverse": H + 1,
-            "spd_inverse_factor": 0}
+            "spd_inverse_factor": 0, "sweep_tap_blocks": 0}
     log(f"  (c) launches in the replan: {launches} (want {want})")
     check(launches == want, "the 1 m CMA-ES launch counts differ from the stated ones")
     for k in ("rmse", "mll", "uncertainty", "uncertainty_difference"):
@@ -3401,7 +3529,7 @@ def fine_2m_cmaes() -> dict:
         launches = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
     want = {"edge_factor_gain": G * H + H, "spd_trace_product": H * 2, "spd_inverse": H + 1,
-            "spd_inverse_factor": 0}
+            "spd_inverse_factor": 0, "sweep_tap_blocks": 0}
     log(f"  (a) launches in the replan: {launches} (want {want})")
     check(launches == want, "the 2 m CMA-ES launch counts differ from the stated ones")
     for k in ("rmse", "mll", "uncertainty", "uncertainty_difference"):

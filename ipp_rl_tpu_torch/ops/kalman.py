@@ -18,7 +18,9 @@ sweep's per-action trace products
 through ``ops/kernels.spd_trace_product_packed``: hand-written CUDA on the
 card, the plain versions of ops/smallchol.py on the CPU.  The sweep builds
 its S and G blocks as packed lower triangles, entries-major, which is the
-layout that kernel reads.  The GEMMs, which the JAX package left to XLA,
+layout that kernel reads; a dense group whose (N, N) block fits a CTA's
+shared memory forms them from H's taps in one launch of
+``ops/kernels.sweep_tap_blocks``.  The GEMMs, which the JAX package left to XLA,
 are ``torch.matmul``; float32 products must run in full float32
 (``torch.backends.cuda.matmul.allow_tf32`` False, the default).
 """
@@ -38,6 +40,7 @@ from ipp_rl_tpu_torch.ops.smallchol import (
     small_mm,
     spd_cholesky_dense,
 )
+from ipp_rl_tpu_torch.utils import tracing
 
 
 def _eye_like(S: torch.Tensor) -> torch.Tensor:
@@ -203,6 +206,19 @@ def _packed_diag(values: np.ndarray) -> np.ndarray:
     return out
 
 
+def _row_taps(H: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """The nonzeros of each row of H (Ag, Mg, N), in cell order, as (cells,
+    weights) (Ag, Mg, KT), KT the largest count in a row (at least 1); a
+    row with fewer is padded with cell 0 and weight 0."""
+    nz = H != 0
+    kt = max(1, int(nz.sum(axis=-1).max()))
+    order = np.argsort(~nz, axis=-1, kind="stable")[..., :kt]  # nonzeros first
+    real = np.take_along_axis(nz, order, axis=-1)
+    cells = np.where(real, order, 0).astype(np.int32)
+    weights = np.where(real, np.take_along_axis(H, order, axis=-1), 0.0)
+    return cells, weights
+
+
 def prepare_batched_sweep(plan, dtype=torch.float32, device: str | torch.device = "cuda"):
     """Device-constant bundle for :func:`kf_sweep_gains_batched` from a
     SweepPlan built with grid dims (ops/sensor_model.build_sweep_plan).
@@ -212,13 +228,18 @@ def prepare_batched_sweep(plan, dtype=torch.float32, device: str | torch.device 
     Q), read with one index gather.  A window group keeps the JAX
     package's full (2r+1)² slot layout: an out-of-grid slot gets zero P/Q
     entries and 1.0 on the diagonal, an in-grid one the action's R
-    (ipp_rl_tpu/ops/kalman.py:319-326).  rf > 1 groups stay DENSE with
-    group-local H rows.
+    (ipp_rl_tpu/ops/kalman.py:319-326).  rf > 1 groups become TAPS groups
+    where one mission's (N, N) block fits a CTA's shared memory and rows
+    have few nonzeros (``kernels.sweep_taps_fit``): each row's nonzero
+    (cell, weight) pairs, from which ``kernels.sweep_tap_blocks`` forms S
+    and G.  Past that (the 2 m and 1 m grids) they stay DENSE with
+    group-local H rows, for the two-stage contraction.
 
     Blocks are packed lower triangles (ops/smallchol.packed_index): a
     gather group's tables are (T, Ag), so that one gather yields the
-    (B, T, Ag) layout of the trace-product kernel; ``eye`` is the packed
-    identity as a (T, 1) column, for both groups' layouts."""
+    (B, T, Ag) layout of the trace-product kernel, and so are a taps
+    group's (Mg, KT, Ag) taps and (T, Ag) diagonals; ``eye`` is the packed
+    identity as a (T, 1) column, for the gather and dense groups' layouts."""
     if plan.x_dim is None or plan.y_dim is None or not plan.groups:
         raise ValueError("the batched sweep needs a SweepPlan with grid dims")
     device = resolve_device(device)
@@ -246,6 +267,17 @@ def prepare_batched_sweep(plan, dtype=torch.float32, device: str | torch.device 
         else:
             Ag, Mg, _ = g.H.shape
             ti, tj = np.tril_indices(Mg)
+            cells, weights = _row_taps(np.asarray(g.H, np.float64))
+            if kernels.sweep_taps_fit(N, dtype, cells.shape[-1]):
+                groups.append(
+                    {
+                        "kind": "taps",
+                        "cells": table(cells.transpose(1, 2, 0), torch.int32),  # (Mg, KT, Ag)
+                        "weights": table(weights.transpose(1, 2, 0)),
+                        "diag": table(_packed_diag(np.asarray(g.R, np.float64)).T),  # (T, Ag)
+                    }
+                )
+                continue
             groups.append(
                 {
                     "kind": "dense",
@@ -294,9 +326,19 @@ def _gather_group_gains(P, Q, g, jitter, stream_dt, acc_dt):
     return kernels.spd_trace_product_packed(S, G)
 
 
-def _dense_group_gains(P, Q, g, jitter, stream_dt, acc_dt):
-    """(B, Ag) gains of an rf > 1 group, with the mission axis as the large
-    GEMM dimension (the JAX package's two-stage contraction):
+def _taps_group_gains(P, Q, g, jitter, stream_dt):
+    """(B, Ag) gains of an rf > 1 group from its rows' taps: one launch
+    forms the packed S and G blocks in the (B, T, Ag) layout, P's entries
+    rounded to the stream dtype as they are read (ops/kernels.sweep_tap_blocks)."""
+    S, G = kernels.sweep_tap_blocks(P.contiguous(), Q, g["cells"], g["weights"], g["diag"],
+                                    jitter, round_p=stream_dt != P.dtype)
+    return kernels.spd_trace_product_packed(S, G)
+
+
+def _two_stage_blocks(P, Q, g, jitter, stream_dt, acc_dt):
+    """The packed S and G blocks (Ag, T, B) of an rf > 1 group past the
+    taps route, with the mission axis as the large GEMM dimension (the JAX
+    package's two-stage contraction):
 
       T[(a,j), (b,n)] = Σ_m H[(a,j), m] X[b, n, m]      one (K, N)×(N, B·N) GEMM
       S[a, i, (j,b)]  = Σ_n H[a, i, n] T[a, (j,b), n]    Ag GEMMs, batched
@@ -321,7 +363,14 @@ def _dense_group_gains(P, Q, g, jitter, stream_dt, acc_dt):
     S = symmetric_lower(stage(P)) + g["R"].to(acc_dt)[..., None]
     if jitter:
         S = S + jitter * g["eye"]
-    G = symmetric_lower(stage(Q))
+    return S, symmetric_lower(stage(Q))
+
+
+def _dense_group_gains(P, Q, g, jitter, stream_dt, acc_dt):
+    """(B, Ag) gains of an rf > 1 group on the two-stage route, counted on
+    ``sweep.dense_two_stage``."""
+    tracing.count("sweep.dense_two_stage")
+    S, G = _two_stage_blocks(P, Q, g, jitter, stream_dt, acc_dt)
     return kernels.spd_trace_product_packed(S, G).T
 
 
@@ -337,9 +386,10 @@ def kf_sweep_gains_batched(
     mission (tests/test_torch_kalman.py) and the JAX package's
     ``kf_sweep_gains_batched``.
 
-    ``fast_math``: bfloat16 streams (Q, the staged products, the gathered
-    P entries) with accumulation in P's dtype, as bench.py runs the JAX
-    package; belief commits are unaffected."""
+    ``fast_math``: bfloat16 streams (Q, the gathered P entries, and on the
+    dense group's two-stage route its staged products) with accumulation in
+    P's dtype, as bench.py runs the JAX package; belief commits are
+    unaffected."""
     acc_dt = P.dtype
     stream_dt = torch.bfloat16 if fast_math else acc_dt
     # Q = P·diag(m)·P, stored in the stream dtype
@@ -349,6 +399,8 @@ def kf_sweep_gains_batched(
     for g in prep["groups"]:
         if g["kind"] == "gather":
             parts.append(_gather_group_gains(P, Q, g, jitter, stream_dt, acc_dt))
+        elif g["kind"] == "taps":
+            parts.append(_taps_group_gains(P, Q, g, jitter, stream_dt))
         else:
             parts.append(_dense_group_gains(P, Q, g, jitter, stream_dt, acc_dt))
     return torch.cat(parts, dim=1)[:, prep["perm"]]

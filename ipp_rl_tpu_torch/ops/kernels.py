@@ -1,8 +1,9 @@
-"""Wrappers of the hand-written CUDA kernels in ``csrc/smallchol.cu``.
+"""Wrappers of the hand-written CUDA kernels in ``csrc/smallchol.cu`` and
+``csrc/sweep_taps.cu``.
 
-``spd_inverse``, ``spd_inverse_factor``, ``spd_trace_product_packed`` and
-``edge_factor_gain`` take CPU tensors to their plain PyTorch versions
-(ops/smallchol.py) and
+``spd_inverse``, ``spd_inverse_factor``, ``spd_trace_product_packed``,
+``edge_factor_gain`` and ``sweep_tap_blocks`` take CPU tensors to their
+plain PyTorch versions (ops/smallchol.py) and
 CUDA tensors to the kernels at any M >= 1,
 with no fallback: a CUDA tensor the kernel cannot take raises.  Each
 launch runs under its inputs' device, on that device's current stream.
@@ -16,10 +17,11 @@ counts its launches on the tracer's counter ``kernel.<name>``
 (utils/tracing.py), where it launches its kernel and nowhere else, so a run
 can show that its path went through the kernels (``launch_counts``).
 
-The library is built at first use from the repository's source with
+The library is built at first use from the repository's sources with
 ``nvcc`` into ``_build/`` beside the package (a content-addressed file
-name, so an edited source is rebuilt), in PARTS parts compiled at once and
-linked, and loaded with ``ctypes``.
+name, so an edited source is rebuilt): ``smallchol.cu`` in PARTS parts and
+``sweep_taps.cu`` whole, compiled at once and linked, and loaded with
+``ctypes``.
 """
 
 from __future__ import annotations
@@ -41,6 +43,8 @@ from ipp_rl_tpu_torch.utils import tracing
 
 PACKAGE_DIR = pathlib.Path(__file__).resolve().parents[1]
 SOURCE = PACKAGE_DIR / "csrc" / "smallchol.cu"
+#: the sweep's dense group from H's taps, compiled beside SOURCE's parts
+TAPS_SOURCE = PACKAGE_DIR / "csrc" / "sweep_taps.cu"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -60,6 +64,11 @@ NVCC_FLAGS = (
 #: one part's kernels one after another
 PARTS = 15
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
+#: ``sweep_tap_blocks`` stages one mission's (N, N) block in a CTA's shared
+#: memory: an H100 CTA takes at most this many bytes of it
+TAPS_SHARED_BYTES = 227 * 1024
+#: and sums at most TAPS_MAX² terms an entry (a row's nonzeros, padded)
+TAPS_MAX = 8
 
 _lib: Optional[ctypes.CDLL] = None
 #: the library's kernel kinds, for ``smallchol_workspace_bytes``
@@ -83,14 +92,15 @@ def _nvcc() -> str:
 
 def library_path() -> pathlib.Path:
     flags = " ".join(NVCC_FLAGS) + f" parts={PARTS}"
-    digest = hashlib.sha1(SOURCE.read_bytes() + flags.encode()).hexdigest()
+    digest = hashlib.sha1(SOURCE.read_bytes() + TAPS_SOURCE.read_bytes()
+                          + flags.encode()).hexdigest()
     return BUILD_DIR / f"libsmallchol-{digest[:16]}.so"
 
 
 def build() -> pathlib.Path:
     """Compile the kernel library unless this source's build exists: the
-    PARTS parts at once, then one link.  The compiler's report (registers,
-    spills) lands next to it as ``.log``."""
+    PARTS parts and TAPS_SOURCE at once, then one link.  The compiler's
+    report (registers, spills) lands next to it as ``.log``."""
     global build_seconds, part_seconds
     path = library_path()
     if path.exists():
@@ -98,13 +108,15 @@ def build() -> pathlib.Path:
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     stem = path.with_name(f"{path.stem}.{os.getpid()}")
-    objs = [stem.with_name(f"{stem.name}.part{p}.o") for p in range(PARTS)]
+    jobs = [(f"-DSMALLCHOL_PART={p}", SOURCE) for p in range(PARTS)] + [(None, TAPS_SOURCE)]
+    objs = [stem.with_name(f"{stem.name}.part{p}.o") for p in range(len(jobs))]
     logs = [o.with_suffix(".txt") for o in objs]
     tmp = stem.with_name(f"{stem.name}.tmp.so")
     t0 = time.perf_counter()
     procs = []
-    for part, (obj, log) in enumerate(zip(objs, logs)):
-        cmd = [_nvcc(), *NVCC_FLAGS, "-c", f"-DSMALLCHOL_PART={part}", "-o", str(obj), str(SOURCE)]
+    for (define, source), obj, log in zip(jobs, objs, logs):
+        cmd = [_nvcc(), *NVCC_FLAGS, "-c", *([define] if define else []), "-o", str(obj),
+               str(source)]
         with open(log, "w") as out:  # a file, not a pipe: no part waits on a reader
             procs.append((cmd, subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT)))
     ended = {}
@@ -162,6 +174,9 @@ def _load() -> ctypes.CDLL:
     lib.smallchol_set_warp_route.restype = i
     lib.smallchol_error_string.argtypes = [i]
     lib.smallchol_error_string.restype = ctypes.c_char_p
+    lib.sweep_taps_blocks.argtypes = [
+        vp, vp, i, i, vp, vp, vp, ctypes.c_double, vp, vp, ll, i, i, i, i, i, vp]
+    lib.sweep_taps_blocks.restype = i
     _lib = lib  # last: a concurrent first call at worst loads the file twice
     return lib
 
@@ -380,8 +395,75 @@ def edge_factor_gain(
     return WcT, gain
 
 
+def sweep_taps_fit(N: int, dtype: torch.dtype, taps: int) -> bool:
+    """Whether ``sweep_tap_blocks`` takes a plan of N cells whose rows have
+    at most ``taps`` nonzeros, in the accumulation dtype: one mission's
+    (N, N) block fits a CTA's shared memory and an entry sums few terms."""
+    return N * N * torch.finfo(dtype).bits // 8 <= TAPS_SHARED_BYTES and 1 <= taps <= TAPS_MAX
+
+
+def sweep_tap_blocks(
+    P: torch.Tensor,
+    Q: torch.Tensor,
+    cells: torch.Tensor,
+    weights: torch.Tensor,
+    R: torch.Tensor,
+    jitter: float = 0.0,
+    round_p: bool = False,
+) -> tuple:
+    """The sweep's dense group, (S, G) packed blocks (B, T, Ag), from P
+    (B, N, N), Q (B, N, N) in P's dtype or bfloat16, the rows' taps
+    ``cells`` (Mg, KT, Ag) int32 and ``weights`` (Mg, KT, Ag), and the
+    packed diagonals R (T, Ag) (ops/smallchol.sweep_tap_blocks): one
+    launch for both."""
+    inputs = (P, Q, cells, weights, R)
+    if all(t.device.type == "cpu" for t in inputs):
+        return smallchol.sweep_tap_blocks(P, Q, cells, weights, R, jitter, round_p)
+    name = "sweep_tap_blocks"
+    if P.ndim != 3 or P.shape[1] != P.shape[2]:
+        raise ValueError(f"{name}: expected P (B, N, N), got {tuple(P.shape)}")
+    B, N, _ = P.shape
+    if cells.ndim != 3:
+        raise ValueError(f"{name}: expected cells (Mg, KT, Ag), got {tuple(cells.shape)}")
+    Mg, KT, Ag = cells.shape
+    T = smallchol.packed_size(Mg)
+    shapes_ok = Q.shape == P.shape and weights.shape == cells.shape and R.shape == (T, Ag)
+    if not shapes_ok:
+        raise ValueError(f"{name}: shapes do not fit P {tuple(P.shape)}, cells "
+                         f"{tuple(cells.shape)}")
+    for t in inputs:
+        if not t.is_cuda or t.device != P.device:
+            raise ValueError(f"{name}: all inputs must be CUDA tensors on one device")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+    code = _DTYPE_CODES.get(P.dtype)
+    if code is None:
+        raise TypeError(f"{name}: float32 or float64 only, got {P.dtype}")
+    if Q.dtype not in (P.dtype, torch.bfloat16):
+        raise TypeError(f"{name}: Q must be in P's dtype or bfloat16, got {Q.dtype}")
+    if weights.dtype != P.dtype or R.dtype != P.dtype:
+        raise TypeError(f"{name}: the weights and R must be in P's dtype")
+    if cells.dtype != torch.int32:
+        raise TypeError(f"{name}: the cells must be int32")
+    S = torch.empty((B, T, Ag), dtype=P.dtype, device=P.device)
+    G = torch.empty_like(S)
+    if S.numel():
+        with torch.cuda.device(P.device):
+            lib = _lib or _load()
+            err = lib.sweep_taps_blocks(
+                P.data_ptr(), Q.data_ptr(), int(Q.dtype == torch.bfloat16), int(round_p),
+                cells.data_ptr(), weights.data_ptr(), R.data_ptr(),
+                float(jitter), S.data_ptr(), G.data_ptr(), B, N, Ag, Mg, KT, code,
+                torch.cuda.current_stream(P.device).cuda_stream,
+            )
+        _raise_on(name, err)
+        tracing.count("kernel.sweep_tap_blocks")
+    return S, G
+
+
 #: the wrappers by the names ``launch_counts`` gives them
-KERNELS = ("spd_inverse", "spd_inverse_factor", "spd_trace_product", "edge_factor_gain")
+KERNELS = ("spd_inverse", "spd_inverse_factor", "spd_trace_product", "edge_factor_gain",
+           "sweep_tap_blocks")
 
 
 def reset_launch_counts() -> None:

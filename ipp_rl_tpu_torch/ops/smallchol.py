@@ -7,8 +7,8 @@ batch-shaped tensors, exactly as in the JAX package.
 
 These are the reference implementations of the hand-written CUDA kernels
 in ``csrc/smallchol.cu`` (``spd_inverse``, ``spd_inverse_factor``,
-``spd_trace_product_packed``, ``edge_factor_gain``): ``ops/kernels.py``
-calls them for CPU tensors,
+``spd_trace_product_packed``, ``edge_factor_gain``) and ``csrc/sweep_taps.cu``
+(``sweep_tap_blocks``): ``ops/kernels.py`` calls them for CPU tensors,
 and the tests and ``chip_smoke.py`` hold the kernels against them.  The
 kernels perform the same operations in the same order, one rounding per
 operation (built without FMA contraction), so on the card the two agree
@@ -260,3 +260,55 @@ def edge_factor_gain(
     if diag_mask is not None:
         sq = sq * diag_mask
     return WcT, warp_order_sum(sq)
+
+
+def sweep_tap_blocks(
+    P: torch.Tensor,
+    Q: torch.Tensor,
+    cells: torch.Tensor,
+    weights: torch.Tensor,
+    R: torch.Tensor,
+    jitter: float = 0.0,
+    round_p: bool = False,
+) -> tuple:
+    """The packed, symmetrised S and G blocks (B, T, Ag) of the sweep's
+    dense group from its rows' taps, per mission b, entry t = (i, j) and
+    action a:
+
+      Xs      = 0.5·(X + Xᵀ)                      X = P (rounded to bfloat16
+                                                  and back if ``round_p``), Q
+      inner_k = Σ_l w[j,l,a]·Xs[b, c[i,k,a], c[j,l,a]]   from 0, l in order
+      S       = Σ_k w[i,k,a]·inner_k over Ps, from 0, k in order, + R[t, a]
+                (+ jitter·δ_ij where jitter is nonzero)
+      G       = the same over Qs
+
+    for P (B, N, N) in the accumulation dtype, Q (B, N, N) in it or in
+    bfloat16, the taps ``cells`` (Mg, KT, Ag) (int32 cell indices) and
+    ``weights`` (Mg, KT, Ag), padded with (0, 0.0), and R (T, Ag), the
+    packed diagonals; entry t is (i, j) in packed order.  The
+    kernel ``sweep_tap_blocks`` of csrc/sweep_taps.cu takes the same
+    operations in the same order, so the two agree to the last bit."""
+    acc_dt = P.dtype
+    B, N, _ = P.shape
+    i, j = torch.tril_indices(cells.shape[0], cells.shape[0], device=P.device)
+    cells = cells.long()
+    ci, cj = cells[i], cells[j]  # (T, KT, Ag)
+    wi, wj = weights[i], weights[j]
+    KT = cells.shape[1]
+
+    def blocks(X):
+        Xs = (0.5 * (X + X.mT)).reshape(B, N * N)
+        acc = torch.zeros((B,) + ci[:, 0].shape, dtype=acc_dt, device=P.device)
+        for k in range(KT):
+            base = ci[:, k] * N
+            inner = torch.zeros_like(acc)
+            for l in range(KT):
+                inner = inner + wj[:, l] * Xs[:, base + cj[:, l]]
+            acc = acc + wi[:, k] * inner
+        return acc
+
+    Pa = P.to(torch.bfloat16).to(acc_dt) if round_p else P
+    S = blocks(Pa) + R
+    if jitter:
+        S = S + jitter * (i == j).to(acc_dt)[:, None]
+    return S, blocks(Q.to(acc_dt))

@@ -120,7 +120,7 @@ def test_batched_sweep_matches_jax_and_dense(which, small_cfg, canonical_cfg):
     cfg = small_cfg if which == "small" else canonical_cfg
     jworld = JaxWorld(cfg, dtype=jnp.float64)
     world = IPPWorld(cfg, dtype=torch.float64, device="cpu")
-    assert {g["kind"] for g in world.sweep_batched["groups"]} == {"gather", "dense"}
+    assert {g["kind"] for g in world.sweep_batched["groups"]} == {"gather", "taps"}
     Pb, mask = _evolved_beliefs(cfg, jworld, 4, seed=7)
     H = torch.from_numpy(world.table.H)
     R = torch.from_numpy(world.table.R_diag)

@@ -1291,8 +1291,9 @@ def _committed_state(world, B, seed, steps=3):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_deployed_batch_of_one_is_bitwise_plain(cuda, dtype):
     """The deployed mission's shapes (one mission): each K2 launch of a
-    greedy sweep, the commit's S for K1, and a zero replan's edge update,
-    bitwise against their plain versions."""
+    greedy sweep (both groups in the (1, T, Ag) layout) and its tap launch,
+    the commit's S for K1, and a zero replan's edge update, bitwise against
+    their plain versions."""
     from ipp_rl_tpu_torch.ops.rewards import adaptive_mask
     from ipp_rl_tpu_torch.planners.base import sweep_rewards
 
@@ -1300,20 +1301,32 @@ def test_deployed_batch_of_one_is_bitwise_plain(cuda, dtype):
     world = IPPWorld(cfg, dtype=dtype)
     state, gen = _committed_state(world, 1, seed=9)
     recorded, launch = [], kernels.spd_trace_product_packed
+    taps, launch_taps = [], kernels.sweep_tap_blocks
 
     def record(S, G):
         recorded.append((S, G))
         return launch(S, G)
 
+    def record_taps(*args, **kw):
+        taps.append((args, kw))
+        return launch_taps(*args, **kw)
+
     kernels.spd_trace_product_packed = record
+    kernels.sweep_tap_blocks = record_taps
     try:
         sweep_rewards(world, state)
     finally:
         kernels.spd_trace_product_packed = launch
-    assert sorted(tuple(S.shape) for S, _ in recorded) == [(1, 45, 100), (100, 45, 1)]
+        kernels.sweep_tap_blocks = launch_taps
+    assert sorted(tuple(S.shape) for S, _ in recorded) == [(1, 45, 100), (1, 45, 100)]
     for S, G in recorded:
         assert torch.equal(kernels.spd_trace_product_packed(S, G),
                            smallchol.spd_trace_product_packed(S, G))
+    assert len(taps) == 1
+    args, kw = taps[0]
+    for got, want in zip(kernels.sweep_tap_blocks(*args, **kw),
+                         smallchol.sweep_tap_blocks(*args, **kw)):
+        assert torch.equal(got, want)
     a = torch.randint(0, world.num_actions, (1,), generator=gen, device=cuda)
     H = world.H[a]
     A = H @ state.cov
@@ -1360,3 +1373,157 @@ def test_sharded_kalman_at_world_size_one_on_nccl(cuda):
         assert torch.equal(gains, kf_sweep_gains(P, world.H, world.R_diag, mask))
     finally:
         dist.destroy_process_group()
+
+
+# ------------------------------------------------------------ the sweep's taps
+
+def taps_world(dtype, cuda):
+    """example.yaml's dense group on the taps route: its tables on the card."""
+    world = IPPWorld(load_config(str(CONFIG_DIR / "example.yaml")), dtype=dtype)
+    (g,) = [g for g in world.sweep_batched["groups"] if g["kind"] == "taps"]
+    return world, g
+
+
+def taps_beliefs(B, N, dtype, fast, seed, cuda):
+    """B random covariances (B, N, N) on the card, a mask with zeros, and
+    Q = P·diag(m)·P in the stream dtype, as the sweep forms it."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    A = torch.randn((B, N, N), generator=gen, device=cuda, dtype=dtype) / N ** 0.5
+    P = A @ A.mT + 0.1 * torch.eye(N, device=cuda, dtype=dtype)
+    P = 0.5 * (P + P.mT)
+    mask = (torch.rand((B, N), generator=gen, device=cuda) > 0.4).to(dtype)
+    stream = torch.bfloat16 if fast else dtype
+    Q = torch.matmul((P * mask[:, None, :]).to(stream), P.to(stream))
+    return P, Q
+
+
+def same_or_both_nan(got, want):
+    return bool(((got == want) | (torch.isnan(got) & torch.isnan(want))).all())
+
+
+#: name: (B, dtype, bf16 streams, jitter): greedy's cell, classic's, CMA-ES's init
+TAPS_SHAPES = {
+    "greedy-b4096-bf16": (4096, torch.float32, True, 0.0),
+    "classic-r1024-f32": (1024, torch.float32, False, 0.0),
+    "cmaes-b8192-f32": (8192, torch.float32, False, 0.0),
+    "f32-jitter": (33, torch.float32, False, 1e-4),
+    "f64": (33, torch.float64, False, 1e-4),
+    "f64-bf16": (33, torch.float64, True, 0.0),
+}
+
+
+@pytest.mark.parametrize("shape", TAPS_SHAPES)
+def test_sweep_tap_blocks_kernel_is_bitwise_plain(cuda, shape):
+    """The kernel against its plain version on the card at the three paths'
+    batches (bf16 streams at greedy's), in both dtypes and with jitter."""
+    B, dtype, fast, jitter = TAPS_SHAPES[shape]
+    _, g = taps_world(dtype, cuda)
+    P, Q = taps_beliefs(B, 100, dtype, fast, seed=B, cuda=cuda)
+    args = (P, Q, g["cells"], g["weights"], g["diag"], jitter, fast)
+    got, want = kernels.sweep_tap_blocks(*args), smallchol.sweep_tap_blocks(*args)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        assert x.shape == (B, 45, 100) and torch.equal(x, y)
+
+
+def test_sweep_tap_blocks_masked_and_degenerate_beliefs(cuda):
+    """A batch with all-zero masks, zero and 1e30-scaled covariances, and
+    an inf and a NaN entry: equal to the plain version, NaN where it has NaN."""
+    _, g = taps_world(torch.float32, cuda)
+    P, _ = taps_beliefs(64, 100, torch.float32, False, seed=9, cuda=cuda)
+    P[1] = 0.0
+    P[2] *= 1e30
+    P[3, 5, 7] = float("inf")
+    P[4, 40, 41] = P[4, 41, 40] = float("nan")
+    mask = (torch.rand((64, 100), device=cuda) > 0.4).float()
+    mask[5:9] = 0.0
+    for fast in (False, True):
+        stream = torch.bfloat16 if fast else torch.float32
+        Q = torch.matmul((P * mask[:, None, :]).to(stream), P.to(stream))
+        args = (P, Q, g["cells"], g["weights"], g["diag"], 1e-4, fast)
+        got, want = kernels.sweep_tap_blocks(*args), smallchol.sweep_tap_blocks(*args)
+        for x, y in zip(got, want):
+            assert same_or_both_nan(x, y)
+        assert bool(torch.isnan(got[0][4]).any()) and bool((got[1][5:9] == 0).all())
+
+
+@pytest.mark.parametrize("N,KT,dtype,offset", [
+    (7, 1, torch.float32, 0), (37, 3, torch.float32, 0), (100, 8, torch.float32, 1),
+    (100, 5, torch.float64, 1), (160, 2, torch.float64, 0), (64, 6, torch.float32, 0),
+], ids=["n7", "n37", "n100-kt8-offset", "f64-offset", "f64-n160", "n64"])
+def test_sweep_tap_blocks_any_taps_and_layout(cuda, N, KT, dtype, offset):
+    """Random taps (KT = 1..8, repeated cells), grids whose rows fill no
+    16-byte vector or whose blocks start off one, and an f64 block past 48 KB
+    of shared memory: bitwise the plain version, both stream kinds."""
+    gen = torch.Generator(device=cuda).manual_seed(N * 10 + KT)
+    Mg, Ag = 3, 37
+    cells = torch.randint(0, N, (Mg, KT, Ag), generator=gen, device=cuda, dtype=torch.int32)
+    weights = torch.randn((Mg, KT, Ag), generator=gen, device=cuda, dtype=dtype)
+    R = torch.rand((smallchol.packed_size(Mg), Ag), generator=gen, device=cuda, dtype=dtype)
+    for fast in (False, True):
+        P, Q = taps_beliefs(5, N, dtype, fast, seed=N, cuda=cuda)
+        if offset:  # blocks that start one value past a 16-byte boundary
+            P = torch.cat([P.new_zeros(1), P.reshape(-1)])[1:].view(P.shape)
+        args = (P, Q, cells, weights, R, 1e-3, fast)
+        got, want = kernels.sweep_tap_blocks(*args), smallchol.sweep_tap_blocks(*args)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+
+
+def test_sweep_tap_blocks_refuses_and_counts(cuda):
+    """Past a CTA's shared memory (N = 400 in f32) and past TAPS_MAX taps
+    the kernel refuses; wrong dtypes and CPU inputs raise; each launch and
+    no empty batch is counted on ``kernel.sweep_tap_blocks``."""
+    _, g = taps_world(torch.float32, cuda)
+    P, Q = taps_beliefs(2, 100, torch.float32, True, seed=1, cuda=cuda)
+    args = [P, Q, g["cells"], g["weights"], g["diag"]]
+    before = kernels.launch_counts()["sweep_tap_blocks"]
+    kernels.sweep_tap_blocks(*args)
+    S, G = kernels.sweep_tap_blocks(P[:0], Q[:0], *args[2:])
+    assert S.shape == G.shape == (0, 45, 100)
+    assert kernels.launch_counts()["sweep_tap_blocks"] == before + 1
+    with pytest.raises(TypeError):
+        kernels.sweep_tap_blocks(P.half(), Q, *args[2:])
+    with pytest.raises(TypeError):
+        kernels.sweep_tap_blocks(P, Q.half(), *args[2:])
+    with pytest.raises(TypeError):
+        kernels.sweep_tap_blocks(P, Q, g["cells"].long(), *args[3:])
+    with pytest.raises(ValueError):
+        kernels.sweep_tap_blocks(P, Q, g["cells"].cpu(), *args[3:])
+    big = torch.zeros((1, 400, 400), device=cuda)
+    cells = torch.zeros((9, 4, 100), dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError):
+        kernels.sweep_tap_blocks(big, big, cells, g["weights"], g["diag"])
+    many = torch.zeros((9, kernels.TAPS_MAX + 1, 100), device=cuda)
+    with pytest.raises(RuntimeError):
+        kernels.sweep_tap_blocks(P, Q, many.int(), many, g["diag"])
+
+
+@pytest.mark.parametrize("fast", [False, True], ids=["f32", "bf16"])
+def test_sweep_takes_one_tap_launch_and_no_two_stage(cuda, fast):
+    """A sweep on the card: one ``sweep_tap_blocks`` launch, no two-stage
+    call (``sweep.dense_two_stage``), and the gains of the sweep with the
+    plain tap version in the kernel's place, bit for bit."""
+    from ipp_rl_tpu_torch.ops import kalman
+    from ipp_rl_tpu_torch.utils import tracing
+
+    world, _ = taps_world(torch.float32, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    state = world.init_state(256, gen)
+    for _ in range(2):
+        a = torch.randint(0, world.num_actions, (256,), generator=gen, device=cuda)
+        state = world.step_index(state, a, generator=gen)
+    mask = (torch.rand(state.cov.shape[:2], generator=gen, device=cuda) > 0.4).float()
+    before, two = kernels.launch_counts(), tracing.counts("sweep.")
+    got = kalman.kf_sweep_gains_batched(state.cov, world.sweep_batched, mask, 1e-4, fast)
+    after = kernels.launch_counts()
+    assert after["sweep_tap_blocks"] == before["sweep_tap_blocks"] + 1
+    assert after["spd_trace_product"] == before["spd_trace_product"] + 2
+    assert tracing.counts("sweep.") == two
+    launch = kernels.sweep_tap_blocks
+    kernels.sweep_tap_blocks = smallchol.sweep_tap_blocks
+    try:
+        want = kalman.kf_sweep_gains_batched(state.cov, world.sweep_batched, mask, 1e-4, fast)
+    finally:
+        kernels.sweep_tap_blocks = launch
+    assert torch.equal(got, want)

@@ -71,22 +71,25 @@ def test_packed_plain_is_bitwise_full_block(M, dtype, layout):
 @pytest.mark.parametrize("which", ["small", "canonical"])
 def test_sweep_tables_are_packed(which, small_cfg, canonical_cfg):
     """Each group's tables are in the trace-product kernel's layouts: a
-    gather group's in (T, Ag) order, so one gather gives (B, T, Ag); a
-    dense group's diagonals as (Ag, T) rows; ``eye`` the packed identity."""
+    gather group's in (T, Ag) order, so one gather gives (B, T, Ag), with
+    ``eye`` the packed identity; a taps group's (the rf > 1 actions on grids
+    whose (N, N) block fits a CTA's shared memory) diagonals as (T, Ag) and
+    its taps as (Mg, KT, Ag), for the (B, T, Ag) blocks its kernel writes."""
     cfg = small_cfg if which == "small" else canonical_cfg
     world = IPPWorld(cfg, dtype=torch.float64, device="cpu")
     groups = world.sweep_batched["groups"]
-    assert {g["kind"] for g in groups} == {"gather", "dense"}
+    assert {g["kind"] for g in groups} == {"gather", "taps"}
     for g in groups:
         if g["kind"] == "gather":
             T, Ag = g["vv"].shape
             assert g["index"].shape == (T * Ag,) and g["diag"].shape == (T, Ag)
+            M = smallchol.packed_m(T)
+            assert torch.equal(g["eye"][:, 0],
+                               smallchol.pack_lower(torch.eye(M, dtype=g["eye"].dtype)))
         else:
-            Ag, Mg, _ = g["H"].shape
+            Mg, KT, Ag = g["cells"].shape
             T = smallchol.packed_size(Mg)
-            assert g["R"].shape == (Ag, T)
-        M = smallchol.packed_m(T)
-        assert torch.equal(g["eye"][:, 0], smallchol.pack_lower(torch.eye(M, dtype=g["eye"].dtype)))
+            assert g["diag"].shape == (T, Ag) and g["weights"].shape == (Mg, KT, Ag)
 
 
 def test_packed_sweep_fast_math_agrees_with_jax(canonical_cfg):

@@ -149,7 +149,8 @@ def test_launch_counts_are_views_of_the_counters():
     tracing.count("kernel.spd_trace_product")
     tracing.count("host_syncs")
     assert kernels.launch_counts() == {"spd_inverse": 0, "spd_inverse_factor": 0,
-                                       "spd_trace_product": 1, "edge_factor_gain": 3}
+                                       "spd_trace_product": 1, "edge_factor_gain": 3,
+                                       "sweep_tap_blocks": 0}
     kernels.reset_launch_counts()
     assert kernels.launch_counts() == dict.fromkeys(kernels.KERNELS, 0)
     assert tracing.counts() == {"host_syncs": 1}
